@@ -1,0 +1,66 @@
+"""Carry weights between the JAX package and the port.
+
+The port keeps the JAX parameter tree's names and layouts (einsum weights
+``wq (d,H,hd)``, ``wo (H,hd,d)``, blocks stacked on a leading ``L`` axis),
+so a transfer is a plain copy: both sides then compute the same function
+on the same weights. The JAX side hands over its tree as numpy arrays
+(``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.runtime import DeviceLike, resolve_device
+from repro_torch.models.layers import ParamTree, dtype_of
+from repro_torch.models.transformer import param_shapes
+
+
+def _to_tensor(a: Any, dtype: torch.dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: numpy-foreign
+        a = a.astype(np.float32)
+    return torch.tensor(a).to(dtype)
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
+                    device: DeviceLike = "cuda") -> ParamTree:
+    """The port's parameters from the tree that
+    ``repro.models.transformer.init_params`` returns, as numpy arrays.
+    Keys and shapes must match ``param_shapes(cfg)``; raises otherwise."""
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.param_dtype)
+
+    def walk(t, shapes, path):
+        if set(t) != set(shapes):
+            raise ValueError(f"params_from_jax: keys at {path or '/'} are "
+                             f"{sorted(t)}, expected {sorted(shapes)}")
+        out = {}
+        for k in sorted(shapes):
+            if isinstance(shapes[k], dict):
+                out[k] = walk(t[k], shapes[k], f"{path}/{k}")
+                continue
+            x = _to_tensor(t[k], dtype)
+            if tuple(x.shape) != shapes[k]:
+                raise ValueError(f"params_from_jax: {path}/{k} has shape "
+                                 f"{tuple(x.shape)}, expected {shapes[k]}")
+            out[k] = x
+        return out
+
+    return ParamTree(walk(tree, param_shapes(cfg), "")).to(dev)
+
+
+def params_to_numpy(params: ParamTree) -> dict:
+    """The inverse: a nested dict of numpy arrays with the JAX tree's
+    names (bfloat16 leaves come out as float32)."""
+    def leaf(v: torch.Tensor) -> np.ndarray:
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, ParamTree) else leaf(v)
+                for k, v in t.items()}
+    return walk(params)

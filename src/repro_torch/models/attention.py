@@ -1,0 +1,312 @@
+"""Attention for the serving path: GQA with RoPE over the engine's KV caches.
+
+The PyTorch counterpart of ``repro.models.attention`` (the functions the
+continuous-batching engine runs). Layouts are the JAX package's:
+
+  q projections    (d, H, hd)        H = query heads
+  k/v projections  (d, K, hd)        K = kv heads (GQA groups G = H/K)
+  out projection   (H, hd, d)
+  activations      (B, S, H, hd)
+
+KV caches store post-RoPE keys. Where the JAX functions return a new
+cache, these update the cache tensors they are given IN PLACE (and
+return them), which saves a copy of the cache per layer and step.
+
+JAX drops out-of-bounds scatter writes and clamps out-of-bounds gathers;
+PyTorch raises on both. Every site where the JAX code relies on a dropped
+write (dead rows at batch index ``B``, padded chunk columns at ``T``,
+write-map pages ``>= n_pages``) masks those entries out explicitly here,
+and every clamp is kept, so the cache bytes come out equal.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import (apply_rope, as_dtype, f32,
+                                       rmsnorm, rope_tables, rotate)
+
+Params = Dict[str, Any]
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, d: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, *, qk_norm: bool = False,
+                   bias: bool = False, dtype=torch.float32,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    """Random attention weights (``lead`` prepends stacking axes)."""
+    s = d ** -0.5
+
+    def normal(*shape):
+        return torch.randn(lead + shape, generator=gen)
+
+    p: Params = {
+        "wq": (normal(d, n_heads, head_dim) * s).to(dtype),
+        "wk": (normal(d, n_kv_heads, head_dim) * s).to(dtype),
+        "wv": (normal(d, n_kv_heads, head_dim) * s).to(dtype),
+        "wo": (normal(n_heads, head_dim, d)
+               * (n_heads * head_dim) ** -0.5).to(dtype),
+    }
+    if bias:
+        p["bq"] = torch.zeros(lead + (n_heads, head_dim), dtype=dtype)
+        p["bk"] = torch.zeros(lead + (n_kv_heads, head_dim), dtype=dtype)
+        p["bv"] = torch.zeros(lead + (n_kv_heads, head_dim), dtype=dtype)
+        p["bo"] = torch.zeros(lead + (d,), dtype=dtype)
+    if qk_norm:
+        p["q_norm"] = {"scale": torch.ones(lead + (head_dim,), dtype=dtype)}
+        p["k_norm"] = {"scale": torch.ones(lead + (head_dim,), dtype=dtype)}
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    B, S, d = x.shape
+    return (x.reshape(B * S, d) @ w.reshape(d, -1)).view(B, S, *w.shape[1:])
+
+
+def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor):
+    q = _proj(xq, p["wq"])
+    k = _proj(xkv, p["wk"])
+    v = _proj(xkv, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    return q, k, v
+
+
+def _out_proj(p: Params, o: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", o, wo)`` as one matrix product."""
+    B, S, H, hd = o.shape
+    wo = p["wo"]
+    out = (o.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(B, S, -1)
+    if "bo" in p:
+        out = out + p["bo"]
+    return out
+
+
+def grouped_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask broadcastable to (B,1,1,S,T).
+
+    Returns (B,S,H,hd). GQA via a group axis — no kv repetition. The
+    softmax is written out (einsum + ``-1e30`` mask) to keep the JAX
+    masking exactly; a masked-out row attends uniformly, as in JAX."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", f32(qg),
+                          f32(k)) * (hd ** -0.5)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", as_dtype(w, v.dtype), v)
+    return o.reshape(B, S, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Serving-engine KV-cache paths
+# ---------------------------------------------------------------------------
+class DecodePlan(NamedTuple):
+    """What one ragged decode step's attention needs besides the layer's
+    weights and cache — the same for every layer, so a model step builds
+    it once (``dense_decode_plan`` / ``paged_decode_plan``) instead of
+    once per layer."""
+    cos: torch.Tensor       # (B,1,1,hd/2) RoPE tables at each row's pos
+    sin: torch.Tensor
+    rows: torch.Tensor      # rows that write their new k/v
+    wrow: torch.Tensor      # where they write: dense row / pool page
+    wcol: torch.Tensor      # ... and column / offset in the page
+    qpos: torch.Tensor      # (B,) int32 last key to attend (0 when dead)
+    live: torch.Tensor      # (B,) int32
+    pmap: torch.Tensor      # (B,P) int32 page map the kernel reads
+                            # (the identity map over a dense cache)
+
+
+def _rope_and_pos(pos: torch.Tensor, live: torch.Tensor, head_dim: int,
+                  rope_theta: float, use_rope: bool):
+    posb = pos.long()
+    cos = sin = posb.new_zeros(())
+    if use_rope:
+        cos, sin = rope_tables(posb[:, None], head_dim, rope_theta)
+    qpos = torch.where(live, posb, 0).to(torch.int32)
+    return posb, cos, sin, qpos
+
+
+def dense_decode_plan(pos: torch.Tensor, live: torch.Tensor, T: int,
+                      head_dim: int, *, use_rope: bool = True,
+                      rope_theta: float = 10000.0) -> DecodePlan:
+    """Plan over the linear slot cache (B, T, ..): live rows write column
+    ``clamp(pos, 0, T-1)`` (JAX sends dead rows to batch index B, where
+    the write drops); the flash path reads the cache as ``T // ps`` pages
+    through an identity map."""
+    posb, cos, sin, qpos = _rope_and_pos(pos, live, head_dim, rope_theta,
+                                         use_rope)
+    rows = torch.nonzero(live, as_tuple=True)[0]
+    B = pos.shape[0]
+    nb = T // _pow2_kv_block(T)
+    idmap = torch.arange(B * nb, dtype=torch.int32,
+                         device=pos.device).reshape(B, nb)
+    return DecodePlan(cos, sin, rows, rows, posb.clamp(0, T - 1)[rows],
+                      qpos, live.to(torch.int32), idmap)
+
+
+def paged_decode_plan(pos: torch.Tensor, live: torch.Tensor,
+                      rmap: torch.Tensor, wmap: torch.Tensor,
+                      page_size: int, n_pages: int, head_dim: int, *,
+                      use_rope: bool = True,
+                      rope_theta: float = 10000.0) -> DecodePlan:
+    """Plan over the paged pool: row b writes (page, offset) =
+    ``(wmap[b, pos_b // ps], pos_b % ps)``, with the page index clamped
+    to the map, and only where that page is real (< n_pages) — JAX drops
+    the write for frozen/shared pages and other rows."""
+    posb, cos, sin, qpos = _rope_and_pos(pos, live, head_dim, rope_theta,
+                                         use_rope)
+    pidx = (posb // page_size).clamp(0, rmap.shape[1] - 1)
+    wpage = torch.gather(wmap.long(), 1, pidx[:, None])[:, 0]
+    rows = torch.nonzero(wpage < n_pages, as_tuple=True)[0]
+    return DecodePlan(cos, sin, rows, wpage[rows], (posb % page_size)[rows],
+                      qpos, live.to(torch.int32), rmap.to(torch.int32))
+
+
+def _decode_qkv(p: Params, x: torch.Tensor, plan: DecodePlan,
+                use_rope: bool):
+    q, k, v = _project_qkv(p, x, x)
+    if use_rope:
+        q = rotate(q, plan.cos, plan.sin)
+        k = rotate(k, plan.cos, plan.sin)
+    return q, k, v
+
+
+def _write(ck: torch.Tensor, cv: torch.Tensor, plan: DecodePlan,
+           k: torch.Tensor, v: torch.Tensor) -> None:
+    """The plan's rows write their new token's k/v (in place)."""
+    ck[plan.wrow, plan.wcol] = as_dtype(k[plan.rows, 0], ck.dtype)
+    cv[plan.wrow, plan.wcol] = as_dtype(v[plan.rows, 0], cv.dtype)
+
+
+def attention_decode_ragged(p: Params, x: torch.Tensor, pos: torch.Tensor, *,
+                            cache: Params, live: torch.Tensor,
+                            use_rope: bool = True,
+                            rope_theta: float = 10000.0,
+                            plan: Optional[DecodePlan] = None
+                            ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode with PER-ROW positions over the engine's linear
+    slot cache. x: (B,1,d); pos: (B,) absolute position of each row's
+    current token; live: (B,) bool. Row b's cache is valid on
+    ``[0, pos_b]`` after this call's write; dead rows do not write and
+    attend only slot 0 (finite, discarded). ``plan`` (from
+    ``dense_decode_plan``) may be shared by all layers of a step."""
+    T = cache["k"].shape[1]
+    if plan is None:
+        plan = dense_decode_plan(pos, live, T, p["wq"].shape[-1],
+                                 use_rope=use_rope, rope_theta=rope_theta)
+    q, k, v = _decode_qkv(p, x, plan, use_rope)
+    ck, cv = cache["k"], cache["v"]
+    _write(ck, cv, plan, k, v)
+    t = torch.arange(T, device=x.device)
+    mask = (t[None, :] <= plan.qpos[:, None])[:, None, None, None, :]
+    o = grouped_attend(q, ck, cv, mask)
+    return _out_proj(p, o), {"k": ck, "v": cv}
+
+
+def _pow2_kv_block(cache_len: int) -> int:
+    """Page size for viewing a DENSE (B, T, ..) slot cache as kernel
+    pages: the largest power of two dividing ``cache_len``, capped at
+    128."""
+    block = cache_len & (-cache_len)
+    return min(block, 128)
+
+
+def attention_decode_ragged_flash(p: Params, x: torch.Tensor,
+                                  pos: torch.Tensor, *, cache: Params,
+                                  live: torch.Tensor, use_rope: bool = True,
+                                  rope_theta: float = 10000.0,
+                                  plan: Optional[DecodePlan] = None
+                                  ) -> Tuple[torch.Tensor, Params]:
+    """``attention_decode_ragged`` with the attention contraction done by
+    the flash-decode kernel, which views the dense ``(B, T, ..)`` rows
+    as ``T // block`` pages under an identity page map. The cache write
+    is the same as the plain path's."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    B = x.shape[0]
+    T = cache["k"].shape[1]
+    if plan is None:
+        plan = dense_decode_plan(pos, live, T, p["wq"].shape[-1],
+                                 use_rope=use_rope, rope_theta=rope_theta)
+    q, k, v = _decode_qkv(p, x, plan, use_rope)
+    ck, cv = cache["k"], cache["v"]
+    _write(ck, cv, plan, k, v)
+    ps = _pow2_kv_block(T)
+    kpool = ck.view(B * (T // ps), ps, *ck.shape[2:])  # views: the cache
+    vpool = cv.view(B * (T // ps), ps, *cv.shape[2:])  # is contiguous
+    o = flash_decode(q[:, 0], kpool, vpool, plan.pmap, plan.qpos, plan.live)
+    return _out_proj(p, as_dtype(o, q.dtype)[:, None]), {"k": ck, "v": cv}
+
+
+def attention_decode_ragged_paged_flash(p: Params, x: torch.Tensor,
+                                        pos: torch.Tensor, *,
+                                        kbuf: torch.Tensor,
+                                        vbuf: torch.Tensor,
+                                        live: torch.Tensor,
+                                        rmap: torch.Tensor,
+                                        wmap: torch.Tensor,
+                                        use_rope: bool = True,
+                                        rope_theta: float = 10000.0,
+                                        plan: Optional[DecodePlan] = None
+                                        ) -> Tuple[torch.Tensor,
+                                                   Tuple[torch.Tensor,
+                                                         torch.Tensor]]:
+    """Ragged one-token decode directly over one layer's paged KV pool
+    ``(n_pages, page_size, K, hd)``: the new token's k/v lands on one
+    (page, offset) cell through ``wmap`` (entries ``>= n_pages`` drop the
+    write: frozen, shared and dead rows), and the kernel reads each row's
+    pages through ``rmap``. ``plan`` (from ``paged_decode_plan``) may be
+    shared by all layers of a step. Returns ``(out (B,1,d), (kbuf,
+    vbuf))``."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    if plan is None:
+        plan = paged_decode_plan(pos, live, rmap, wmap, kbuf.shape[1],
+                                 kbuf.shape[0], p["wq"].shape[-1],
+                                 use_rope=use_rope, rope_theta=rope_theta)
+    q, k, v = _decode_qkv(p, x, plan, use_rope)
+    _write(kbuf, vbuf, plan, k, v)
+    o = flash_decode(q[:, 0], kbuf, vbuf, plan.pmap, plan.qpos, plan.live)
+    return _out_proj(p, as_dtype(o, q.dtype)[:, None]), (kbuf, vbuf)
+
+
+def attention_prefill_chunk(p: Params, x: torch.Tensor, off: torch.Tensor,
+                            clen: torch.Tensor, *, cache: Params,
+                            use_rope: bool = True,
+                            rope_theta: float = 10000.0
+                            ) -> Tuple[torch.Tensor, Params]:
+    """One CHUNK of a chunked ragged prefill into the linear slot cache.
+    x: (B,C,d); row b's chunk occupies absolute positions
+    ``[off_b, off_b + clen_b)``; the rest of the chunk is padding, which
+    does not write (JAX scatters it to column T and drops it). Query
+    ``i`` attends ``t <= off_b + i``; padding queries attend ``t == 0``
+    (finite, discarded)."""
+    B, C, _ = x.shape
+    T = cache["k"].shape[1]
+    q, k, v = _project_qkv(p, x, x)
+    i = torch.arange(C, device=x.device)
+    qpos = off[:, None].long() + i[None, :]                  # (B,C) absolute
+    if use_rope:
+        q = apply_rope(q, qpos, rope_theta)
+        k = apply_rope(k, qpos, rope_theta)
+    valid_q = i[None, :] < clen[:, None].long()              # (B,C)
+    # a valid column past T would also be dropped by JAX's scatter
+    valid_w = valid_q & (qpos < T)
+    bi, ci = torch.nonzero(valid_w, as_tuple=True)
+    ck, cv = cache["k"], cache["v"]
+    ck[bi, qpos[bi, ci]] = k[bi, ci].to(ck.dtype)
+    cv[bi, qpos[bi, ci]] = v[bi, ci].to(cv.dtype)
+    t = torch.arange(T, device=x.device)
+    lim = torch.where(valid_q, qpos, torch.zeros_like(qpos))
+    mask = (t[None, None, :] <= lim[..., None])[:, None, None, :, :]
+    o = grouped_attend(q, ck, cv, mask)
+    return _out_proj(p, o), {"k": ck, "v": cv}

@@ -1,0 +1,165 @@
+"""Shared building blocks: norms, rotary embeddings, MLPs, embeddings.
+
+The PyTorch counterpart of ``repro.models.layers``. Parameters live in a
+``ParamTree`` — an ``nn.Module`` that holds the same nested names as the
+JAX package's parameter dict, so ``p["scale"]`` and ``"bias" in p`` read
+the same on both sides and a weight transfer is a plain copy. The math is
+plain functions on tensors. Layer-stacked parameters carry a leading
+``L`` axis; ``layer(tree, i)`` takes layer ``i``'s views.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Mapping, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Params = Mapping[str, Any]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+class ParamTree(nn.Module):
+    """Nested parameter dictionary as an ``nn.Module``: tensors become
+    (frozen) ``nn.Parameter``s, dicts become child ``ParamTree``s. Index
+    it like the dict it was made from."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(torch.as_tensor(v), requires_grad=False))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def keys(self):
+        return list(self._parameters) + list(self._modules)
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+
+def layer(tree: Union[ParamTree, Params], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a layer-stacked tree: every leaf's ``[i]`` view."""
+    return {k: (layer(v, i) if isinstance(v, (ParamTree, dict)) else v[i])
+            for k, v in tree.items()}
+
+
+def f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float32 — without an op when it already is (the eager
+    decode step is bound by the host's cost per op)."""
+    return x if x.dtype == torch.float32 else x.float()
+
+
+def as_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    orig = x.dtype
+    x = f32(x)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return as_dtype(x * f32(p["scale"]), orig)
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    orig = x.dtype
+    x = f32(x)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    out = x * f32(p["scale"]) + f32(p["bias"])
+    return as_dtype(out, orig)
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return layernorm(p, x, eps) if "bias" in p else rmsnorm(p, x, eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float,
+               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+@functools.lru_cache(maxsize=16)
+def _cached_freqs(head_dim: int, theta: float,
+                  device: torch.device) -> torch.Tensor:
+    return rope_freqs(head_dim, theta, device)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of shape (..., S, 1, hd/2) for ``positions`` (..., S) —
+    computed once and shared by q and k."""
+    freqs = _cached_freqs(head_dim, float(theta), positions.device)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor) -> torch.Tensor:
+    """Rotate split HALVES (x[..., :hd/2], x[..., hd/2:]) of x (..., S, H,
+    hd), not interleaved pairs, by the angles of ``rope_tables``."""
+    x1, x2 = torch.chunk(f32(x), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return as_dtype(out, x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    if "w_gate" in p:
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        h = (F.silu(g) if act == "silu"
+             else F.gelu(g, approximate="tanh")) * u
+        return h @ p["w_down"]
+    h = x @ p["w_up"]
+    if "b_up" in p:
+        h = h + p["b_up"]
+    h = F.gelu(h, approximate="tanh")
+    out = h @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """table: (V, d), x: (..., d) -> logits (..., V), computed in f32."""
+    return f32(x) @ f32(table).t()
