@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py
 
-Phases (one line each; any failure exits non-zero and prints no result):
+Phases (one line or a few each; any failure exits non-zero and prints no
+result):
 
 1. device  — torch/CUDA versions, the card's name and power limit
    (``nvidia-smi``), ``require_hopper()``;
-2. build   — nvcc builds every kernel of the serving path from the sources
-   in this checkout (into ``build/torch_ext/``);
+2. build   — nvcc builds every kernel from the sources in this checkout
+   (into ``build/torch_ext/``), one nvcc per source, all started
+   together; nvcc seconds and ptxas registers per kernel;
 3. kernels — each kernel's wrapper against its plain PyTorch version on
-   the card, at the served model's shapes, with the stated tolerance;
-   then its time per launch (CUDA events) beside the plain version's, a
-   library yardstick's and the least time the card could take;
+   the card: flash-decode at the served model's shapes within its stated
+   tolerance; the fused error-feedback block-top-k compressor BIT-EXACT
+   (values, indices, residual) on the JAX kernel tests' cases batched
+   over 3 workers, rows with NaN / all zeros / magnitude ties, and the
+   elastic-SGD demo's shape; then each kernel's time per launch (CUDA
+   events) beside its plain version's, a library yardstick's and the
+   least time the card could take;
 4. serve   — ``mlitb-lm-100m`` at full width (random weights from a
    seed) serves 32 requests through the paged continuous-batching engine
    with prefix reuse and the flash-decode kernel on the decode path; the
@@ -20,7 +26,20 @@ Phases (one line each; any failure exits non-zero and prints no result):
    the plain decode path must give the same token streams (a differing
    token passes only where the plain path's top-2 logit gap is below
    1e-4, and that request is then not compared further);
-5. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
+5. train   — the paper's elastic-SGD scenario
+   (``repro_torch.launch.elastic_sgd``: 14 iterations, workers joining
+   and leaving, the §3.5 conv net at full width, AdaGrad, the packed
+   blocktopk channel) on the card with one compressor launch per reduce
+   step, and again on the CPU (the plain version) in this process: events,
+   worker counts, vectors and wire bytes equal, loss within 1e-3
+   relative, test error within 0.01, final test error <= 0.05 on the card;
+   the same card-vs-CPU gates again on three further seeds;
+6. reduce at LM scale — the same ``MasterReducer`` over
+   ``mlitb-lm-100m``'s flat parameter buffer (n = 100 682 496), 4 seeded
+   workers, block_w 128, 3 reduce steps; the first step's kernel output
+   bit-exact against the plain version on the same card tensors; kernel,
+   plain and ``torch.topk`` times beside the bandwidth bound;
+7. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. Imports ``torch``,
@@ -32,6 +51,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,10 +63,17 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (GradientCompressor, MasterReducer,  # noqa: E402
+                              flat_spec)
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels.topk_compress import ops as tk_ops  # noqa: E402
+from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
+    fused_block_topk_batched_ref)
+from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.optim import adagrad  # noqa: E402
 from repro_torch.models.attention import _pow2_kv_block  # noqa: E402
 from repro_torch.serving import (PagingConfig, ServingConfig,  # noqa: E402
                                  ServingEngine, generate_requests)
@@ -55,6 +82,9 @@ ARCH = "mlitb-lm-100m"
 # the served engine: paged pool, 16-token pages, 16 slots of 512 tokens
 MAX_BATCH, MAX_SEQ, PAGE = 16, 512, 16
 N_REQUESTS = 32
+# the elastic-SGD demo runs card vs CPU on seed 0 (the main path, counted)
+# and on these further seeds, to show the loss gate's margin
+TRAIN_SEEDS = (0, 1, 2, 3)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # FLOP/s outside the tensor cores — the kernel accumulates in f32 on the
 # CUDA cores
@@ -363,38 +393,396 @@ def phase_serve(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the fused error-feedback block-top-k compressor
+# ---------------------------------------------------------------------------
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-exact up to the NaN payload (NaN == NaN) and the sign of 0."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    d = (a[ok].double() - b[ok].double()).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def tk_check(name: str, g: torch.Tensor, r: torch.Tensor, k: int,
+             W: int) -> float:
+    out = tk_ops.fused_block_topk_batched(g, r, k=k, block_w=W)
+    ref = fused_block_topk_batched_ref(g, r, k=k, block_w=W)
+    torch.cuda.synchronize()
+    for a, b, what in zip(out, ref, ("values", "indices", "residual")):
+        if not same(a, b):
+            diff = int((a != b).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"fused_compress {name}: {what} differ from "
+                                 f"the plain version ({diff} entries)")
+    err = max(max_err(out[0], ref[0]), max_err(out[2], ref[2]))
+    print(f"[kernel] fused_compress {name}: bit-exact (values, indices, "
+          f"residual)")
+    return err
+
+
+def tk_bound(Wk: int, n: int, W: int, k: int) -> dict:
+    """Least time for one launch: g and r read once, residual, values and
+    indices written once, over HBM bandwidth; or the f32 operations (one
+    add per entry, |.| and a compare per entry per round) over the CUDA
+    cores' peak."""
+    R = -(-n // W)
+    nbytes = 4 * Wk * n * 3 + 8 * Wk * R * k
+    ops = Wk * n + 2 * k * Wk * R * W
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def graph_ms(fn, n: int, replays: int = 10) -> float:
+    """Device time of one ``fn()`` from a CUDA graph of ``n`` calls
+    replayed ``replays`` times (CUDA events): the host's per-call cost,
+    which dominates a microsecond kernel called eagerly, drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * n)
+
+
+def time_fused(g: torch.Tensor, r: torch.Tensor, k: int, W: int, *,
+               iters: int, plain_iters: int, graph: bool) -> dict:
+    """Kernel, plain version and the ``torch.topk`` yardstick (top-k of
+    |g + r| per W-row: no residual, no promised tie order; rows padded
+    with zeros when W does not divide n) on the same inputs. With
+    ``graph`` the three are timed from CUDA graphs (device time; the
+    eager back-to-back times, host-bound at small shapes, are kept as
+    ``*_eager``); without, eagerly."""
+    Wk, n = g.shape
+    pad = (-n) % W
+
+    def kernel():
+        tk_ops.fused_block_topk_batched(g, r, k=k, block_w=W)
+
+    def plain():
+        fused_block_topk_batched_ref(g, r, k=k, block_w=W)
+
+    def library():
+        c = (g + r).abs()
+        if pad:
+            c = F.pad(c, (0, pad))
+        torch.topk(c.view(-1, W), k, dim=1)
+
+    eager = {"ms_eager": cuda_ms(kernel, iters),
+             "plain_ms_eager": cuda_ms(plain, plain_iters, warmup=1),
+             "library_ms_eager": cuda_ms(library, iters)}
+    if graph:
+        ms, plain_ms = graph_ms(kernel, iters), graph_ms(plain, plain_iters)
+        library_ms, ms2 = graph_ms(library, iters), graph_ms(kernel, iters)
+    else:
+        ms, plain_ms = eager["ms_eager"], eager["plain_ms_eager"]
+        library_ms, ms2 = eager["library_ms_eager"], cuda_ms(kernel, iters)
+    return {"ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+            "library_ms": library_ms, **eager, **tk_bound(Wk, n, W, k)}
+
+
+def phase_fused_kernel(card: str) -> dict:
+    gen = torch.Generator().manual_seed(2)
+
+    def cuda(x):
+        return x.to("cuda")
+
+    err = 0.0
+    # the JAX kernel tests' (n, W, k) cases, batched over 3 workers
+    for n, W, k in ((128, 8, 1), (1000, 16, 3), (64, 33, 5), (4096, 128, 2),
+                    (7, 8, 3), (5, 4, 9)):
+        g = torch.randn(3, n, generator=gen)
+        r = torch.randn(3, n, generator=gen) * 0.3
+        err = max(err, tk_check(f"n={n} W={W} k={k} x3", cuda(g), cuda(r),
+                                k, W))
+    # NaN, all-zero, signed-zero, tie and infinity rows, and integer rows
+    rows = torch.tensor([[0.5, float("nan"), -2.0, 1.0], [0.0] * 4,
+                         [3.0, -3.0, 3.0, 1.0], [-0.0, 0.0, -0.0, 0.0],
+                         [1.0, 2.0, -2.0, 2.0],
+                         [float("inf"), -float("inf"), 1.0, 0.0]])
+    g = torch.stack([rows.reshape(-1), rows.flip(0).reshape(-1),
+                     torch.round(rows.reshape(-1) * 2)])
+    for k in (1, 2, 4):
+        err = max(err, tk_check(f"nan/zero/tie rows k={k}", cuda(g),
+                                cuda(torch.zeros_like(g)), k, 4))
+    gi = torch.randint(-3, 4, (3, 999), generator=gen).float()
+    ri = torch.randint(-1, 2, (3, 999), generator=gen).float()
+    for W, k in ((8, 3), (32, 1), (128, 5), (1024, 2)):
+        err = max(err, tk_check(f"integer ties W={W} k={k}", cuda(gi),
+                                cuda(ri), k, W))
+    # the elastic-SGD demo's reduce step: W_cap 8 (5 live rows, 3 vacant
+    # zero rows), n = 31 786, W = 32, k = 1
+    Wk, n = 8, 31786
+    g = torch.randn(Wk, n, generator=gen) * 1e-2
+    r = torch.randn(Wk, n, generator=gen) * 1e-3
+    g[5:] = 0.0
+    r[5:] = 0.0
+    g, r = cuda(g), cuda(r)
+    err = max(err, tk_check("demo shape W_cap=8 n=31786 W=32 k=1", g, r, 1,
+                            32))
+    t = time_fused(g, r, 1, 32, iters=100, plain_iters=20, graph=True)
+    print(f"[kernel] fused_compress timing, demo shape (8 x 31786, W=32, "
+          f"k=1, L2-warm, CUDA graphs): kernel {t['ms'] * 1e3:.2f} us/launch "
+          f"({t['ms_runs'][0] * 1e3:.2f}, {t['ms_runs'][1] * 1e3:.2f}), "
+          f"plain {t['plain_ms'] * 1e3:.1f} us, torch.topk "
+          f"{t['library_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} "
+          f"us ({t['bound_by']}, {t['bytes'] / 1e6:.2f} MB); called eagerly "
+          f"{t['ms_eager'] * 1e3:.1f} / {t['plain_ms_eager'] * 1e3:.1f} / "
+          f"{t['library_ms_eager'] * 1e3:.1f} us | {card}")
+    return {"max_abs_err": err, "demo": t}
+
+
+# ---------------------------------------------------------------------------
+# the training slice at full width
+# ---------------------------------------------------------------------------
+def same_run(gpu, cpu, seed: int) -> float:
+    """Hold the card's demo run against the CPU's: events, workers,
+    vectors and wire bytes equal, loss within 1e-3 relative, test error
+    within 0.01, final test error <= 0.05. Returns the largest relative
+    loss difference."""
+    if cpu.launches:
+        raise AssertionError("the CPU run launched the kernel")
+    for a, b, ea, eb in zip(gpu.logs, cpu.logs, gpu.test_err, cpu.test_err):
+        if (a.events, a.n_workers, a.vectors, a.wire_bytes) \
+                != (b.events, b.n_workers, b.vectors, b.wire_bytes):
+            raise AssertionError(f"seed {seed} iteration {a.step}: card {a} "
+                                 f"vs cpu {b}")
+        if not np.isfinite(a.loss) or abs(a.loss - b.loss) > 1e-3 * abs(
+                b.loss) or abs(ea - eb) > 0.01:
+            raise AssertionError(
+                f"seed {seed} iteration {a.step}: loss {a.loss} vs {b.loss}, "
+                f"test error {ea} vs {eb}")
+    if gpu.test_err[-1] > 0.05:
+        raise AssertionError(f"seed {seed}: final test error "
+                             f"{gpu.test_err[-1]} > 0.05")
+    return max(abs(a.loss - b.loss) / abs(b.loss)
+               for a, b in zip(gpu.logs, cpu.logs))
+
+
+def phase_train(card: str, kernel_ms: float) -> dict:
+    starts, ends = [], []
+    inner = MasterReducer.reduce_and_step
+
+    def timed(self, *a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        out = inner(self, *a, **kw)
+        e.record()
+        starts.append(s)
+        ends.append(e)
+        return out
+
+    runtime.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    MasterReducer.reduce_and_step = timed
+    try:
+        gpu = run_demo(device="cuda")
+    finally:
+        MasterReducer.reduce_and_step = inner
+    torch.cuda.synchronize()
+    launches = tk_ops.COUNTER.count
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    steps = gpu.loop.reducer.step
+    if launches == 0 or launches != steps or fd_ops.COUNTER.count:
+        raise AssertionError(f"fused_compress launched {launches} times over "
+                             f"{steps} reduce steps (flash_decode "
+                             f"{fd_ops.COUNTER.count})")
+    t0 = time.perf_counter()
+    cpu = run_demo(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = same_run(gpu, cpu, 0)
+    # the margin: the same gates on further seeds (data, weights, fleet)
+    rel_seeds = {0: rel}
+    for seed in TRAIN_SEEDS[1:]:
+        rel_seeds[seed] = same_run(run_demo(device="cuda", seed=seed),
+                                   run_demo(device="cpu", seed=seed), seed)
+    res = {
+        "iterations": len(gpu.logs), "reduce_steps": steps,
+        "launches": launches,
+        "host_ms_per_iter": 1e3 * float(np.mean(gpu.iter_s)),
+        "host_ms_per_iter_median": 1e3 * float(np.median(gpu.iter_s)),
+        "host_ms_all": [1e3 * x for x in gpu.iter_s],
+        "cpu_host_ms_per_iter": 1e3 * float(np.mean(cpu.iter_s)),
+        "cpu_run_s": cpu_s,
+        "reduce_step_ms": float(np.mean(step_ms)), "reduce_step_ms_all":
+        step_ms, "peak_mem_bytes": peak,
+        "loss": [lg.loss for lg in gpu.logs],
+        "cpu_loss": [lg.loss for lg in cpu.logs],
+        "test_err": gpu.test_err, "cpu_test_err": cpu.test_err,
+        "max_loss_rel": rel, "max_loss_rel_by_seed": rel_seeds,
+        "workers": [lg.n_workers for lg in gpu.logs],
+        "wire_bytes": [lg.wire_bytes for lg in gpu.logs],
+        "trace_count": gpu.loop.reducer.trace_count}
+    margin = ", ".join(f"{k}: {v:.1e}" for k, v in rel_seeds.items())
+    print(f"[train] elastic SGD, mlitb-cnn full width, {len(gpu.logs)} "
+          f"iterations, workers {res['workers']}: final loss "
+          f"{gpu.logs[-1].loss:.4f}, test error {gpu.test_err[-1]:.3f}; "
+          f"matches the CPU run (loss within {rel:.1e} rel, events/vectors/"
+          f"wire equal; by seed {margin}); "
+          f"fused_compress launches {launches} = reduce steps {steps}; host "
+          f"{res['host_ms_per_iter']:.2f} ms/iteration (median "
+          f"{res['host_ms_per_iter_median']:.2f}; CPU run "
+          f"{res['cpu_host_ms_per_iter']:.2f}), reduce step "
+          f"{res['reduce_step_ms']:.3f} ms (CUDA events; the kernel alone "
+          f"{kernel_ms * 1e3:.2f} us/launch at this shape from CUDA graphs, "
+          f"L2-warm); peak mem {peak / 2**20:.0f} MiB | {card}")
+    return res
+
+
+def phase_reduce_lm(card: str) -> dict:
+    cfg = get_config(ARCH)
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    red = MasterReducer(params, adagrad(lr=0.02), GradientCompressor(
+        "blocktopk", frac=1 / 128, block_w=128))
+    del params
+    spec = flat_spec(red.params)
+    n = red.flat_n
+    if n != cfg.n_params():
+        raise AssertionError(f"flat buffer {n} != n_params {cfg.n_params()}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def messages():
+        return {f"w{i}": (spec.unflatten(torch.randn(
+            n, generator=gen, device="cuda")), 1000 + i) for i in range(4)}
+
+    msgs = messages()
+    G = torch.stack([spec.flatten(msgs[w][0]) for w in sorted(msgs)])
+    Z = torch.zeros_like(G)
+    err = tk_check(f"LM scale 4 x {n} W=128 k=1", G, Z, 1, 128)
+    out = tk_ops.fused_block_topk_batched(G, Z, k=1, block_w=128)
+    del Z
+    runtime.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for s in range(3):
+        if s:
+            msgs = messages()
+        t0 = time.perf_counter()
+        red.reduce_and_step(msgs)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if s == 0:
+            for i, w in enumerate(sorted(msgs)):
+                if not same(red._residuals[w], out[2][i]):
+                    raise AssertionError(f"reduce step 1: {w}'s residual is "
+                                         f"not the kernel's")
+            del out
+    launches = tk_ops.COUNTER.count
+    peak = torch.cuda.max_memory_allocated()
+    if launches != 3:
+        raise AssertionError(f"fused_compress launched {launches} times in 3 "
+                             f"reduce steps")
+    R = -(-n // 128)
+    if red.last_wire_bytes != 4 * 8 * R \
+            or not bool(torch.isfinite(red.flat_params).all()):
+        raise AssertionError(f"wire bytes {red.last_wire_bytes} != "
+                             f"{4 * 8 * R} or non-finite params")
+    # time the kernel on step-4 gradients against real residuals
+    msgs = messages()
+    G = torch.stack([spec.flatten(msgs[w][0]) for w in sorted(msgs)])
+    Rs = torch.stack([red._residuals[w] for w in sorted(msgs)])
+    del msgs
+    t = time_fused(G, Rs, 1, 128, iters=20, plain_iters=2, graph=False)
+    res = {"n": n, "launches": launches, "max_abs_err": err,
+           "reduce_step_ms": [1e3 * x for x in step_s],
+           "peak_mem_bytes": peak, **t}
+    print(f"[reduce] {ARCH} flat buffer n={n}, 4 workers, W=128, k=1: 3 "
+          f"reduce steps {', '.join(f'{1e3 * x:.2f}' for x in step_s)} ms; "
+          f"fused_compress launches {launches}; kernel {t['ms']:.3f} ms/"
+          f"launch ({t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f}), plain "
+          f"{t['plain_ms']:.3f} ms, torch.topk {t['library_ms']:.3f} ms, "
+          f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}, "
+          f"{t['bytes'] / 1e9:.3f} GB); peak mem {peak / 2**30:.2f} GiB "
+          f"| {card}")
+    return res
+
+
+def build_all() -> dict:
+    """Build every kernel from this checkout, one nvcc per source, all
+    started together."""
+    libs = {"flash_decode": fd_ops.library, "fused_compress": tk_ops.library}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(libs)) as ex:
+        futs = {name: ex.submit(fn) for name, fn in libs.items()}
+        built = {name: f.result() for name, f in futs.items()}
+    for name, b in built.items():
+        regs = sorted({ln.strip().split("info    : ")[-1]
+                       for ln in b.log.splitlines() if "registers" in ln})
+        print(f"[build] {b.path.name}: nvcc {b.seconds:.2f} s | "
+              + "; ".join(regs))
+    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
+    return built
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs "
               "on a CUDA card", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = card_line()
     name = runtime.require_hopper("cuda")
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), {name} | {card}")
-    t0 = time.perf_counter()
-    built = fd_ops.library()
-    print(f"[build] {built.path.name}: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {built.seconds:.2f} s) | "
-          + "; ".join(ln.strip().split("info    : ")[-1]
-                      for ln in built.log.splitlines()
-                      if "registers" in ln))
+    built = build_all()
     kern = phase_kernels(card)
+    fused = phase_fused_kernel(card)
     srv = phase_serve(card)
-    row = {"name": "flash_decode", "route": "cuda",
-           "source": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
-           "replaces": "src/repro/kernels/flash_decode/flash_decode.py:47",
-           "launches": srv["launches"], "max_abs_err": kern["max_abs_err"],
-           "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-           "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-           "library_ms": kern["library_ms"]}
+    train = phase_train(card, fused["demo"]["ms"])
+    lm = phase_reduce_lm(card)
+    demo = fused["demo"]
+    rows = [
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:47",
+         "launches": srv["launches"], "max_abs_err": kern["max_abs_err"],
+         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
+         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+         "library_ms": kern["library_ms"]},
+        {"name": "fused_compress", "route": "cuda",
+         "source": "src/repro_torch/kernels/topk_compress/topk_compress.cu",
+         "replaces": "src/repro/kernels/topk_compress/topk_compress.py:51",
+         "launches": train["launches"],
+         "max_abs_err": max(fused["max_abs_err"], lm["max_abs_err"]),
+         "ms": demo["ms"], "plain_ms": demo["plain_ms"],
+         "bound_ms": demo["bound_ms"], "bound_by": demo["bound_by"],
+         "library_ms": demo["library_ms"]},
+    ]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": built.seconds, "ptxas": built.log, "kernel": kern,
-         "serve": srv}, indent=1, default=str))
-    print(json.dumps({"kernels": [row]}))
+         "build_s": {k: b.seconds for k, b in built.items()},
+         "ptxas": {k: b.log for k, b in built.items()}, "kernel": kern,
+         "fused_compress": fused, "serve": srv, "train": train,
+         "reduce_lm": lm, "total_s": time.perf_counter() - t_start},
+        indent=1, default=str))
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

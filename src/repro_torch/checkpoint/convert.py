@@ -8,12 +8,13 @@ on the same weights. The JAX side hands over its tree as numpy arrays
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.mlitb_cnn import CNN_EXTRAS
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.layers import ParamTree, dtype_of
 from repro_torch.models.transformer import param_shapes
@@ -64,3 +65,36 @@ def params_to_numpy(params: ParamTree) -> dict:
         return {k: walk(v) if isinstance(v, ParamTree) else leaf(v)
                 for k, v in t.items()}
     return walk(params)
+
+
+def cnn_params_from_jax(tree: Mapping[str, Any], device: DeviceLike = "cuda"
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's conv-net parameters from the tree that
+    ``repro.models.cnn.init_params`` returns, as numpy arrays: a plain
+    copy that keeps the JAX layouts (``conv_w`` HWIO, ``fc_w`` indexed by
+    NHWC-flattened features). Raises on missing keys or other shapes."""
+    dev = resolve_device(device)
+    ex = CNN_EXTRAS
+    feat = ex.conv_filters * (ex.image_hw // ex.pool) ** 2
+    shapes = {"conv_w": (ex.kernel, ex.kernel, ex.channels,
+                         ex.conv_filters),
+              "conv_b": (ex.conv_filters,),
+              "fc_w": (feat, ex.n_classes), "fc_b": (ex.n_classes,)}
+    if set(tree) != set(shapes):
+        raise ValueError(f"cnn_params_from_jax: keys {sorted(tree)}, "
+                         f"expected {sorted(shapes)}")
+    out = {}
+    for k in sorted(shapes):
+        x = _to_tensor(tree[k], torch.float32)
+        if tuple(x.shape) != shapes[k]:
+            raise ValueError(f"cnn_params_from_jax: {k} has shape "
+                             f"{tuple(x.shape)}, expected {shapes[k]}")
+        out[k] = x.to(dev)
+    return out
+
+
+def cnn_params_to_numpy(params: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, np.ndarray]:
+    """The inverse: the conv net's parameters as numpy arrays with the
+    JAX tree's names and layouts."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -6,4 +6,4 @@ from repro_torch.configs.base import (  # noqa: F401
     get_config,
     register,
 )
-from repro_torch.configs import mlitb_lm_100m  # noqa: F401,E402
+from repro_torch.configs import mlitb_cnn, mlitb_lm_100m  # noqa: F401,E402

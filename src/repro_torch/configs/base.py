@@ -46,7 +46,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                  # dense | moe | ssm | hybrid | vlm | audio
+    arch_type: str                  # dense | moe | ssm | hybrid | vlm | audio | cnn
     n_layers: int
     d_model: int
     n_heads: int                    # query heads (0 for attention-free)
@@ -158,7 +158,7 @@ def register(name: str):
 def get_config(name: str) -> ArchConfig:
     if name not in ARCH_REGISTRY:
         # import side-effect registration
-        from repro_torch.configs import mlitb_lm_100m  # noqa: F401
+        from repro_torch.configs import mlitb_cnn, mlitb_lm_100m  # noqa: F401
     if name not in ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_REGISTRY)}")
     return ARCH_REGISTRY[name]()

@@ -1,32 +1,20 @@
 """Seeded open-loop request schedules (copy of
-``repro.core.simulation.generate_requests`` and the device profiles it
-draws client latencies from). The same arguments and seed give a
-bit-equal schedule on both sides: every draw comes from the same
-``numpy.random.RandomState`` streams in the same order.
+``repro.core.simulation.generate_requests``). Client latencies are drawn
+from the training fleet's device profiles (``core/simulation.py``). The
+same arguments and seed give a bit-equal schedule on both sides: every
+draw comes from the same ``numpy.random.RandomState`` streams in the same
+order.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.simulation import (LAPTOP, PHONE,
+                                         WORKSTATION, DeviceProfile)
 from repro_torch.serving.engine import ServeRequest
-
-
-@dataclass(frozen=True)
-class DeviceProfile:
-    """A client device class: the latency fields of
-    ``repro.core.simulation.DeviceProfile`` (the rest model training)."""
-    name: str
-    latency_mean: float         # base one-way network latency (s)
-    latency_jitter: float       # lognormal-ish jitter scale
-
-
-WORKSTATION = DeviceProfile("workstation", 0.010, 0.20)
-LAPTOP = DeviceProfile("laptop", 0.030, 0.40)
-PHONE = DeviceProfile("phone", 0.120, 0.80)
 
 
 def generate_requests(n: int, *, rate_rps: float = 60.0,

@@ -3,7 +3,7 @@
 The PyTorch counterpart of ``repro.train.step``'s ``ServePrograms`` /
 ``build_serve_programs``. PyTorch runs eagerly, so there is nothing to
 jit or bucket: a program is a plain function, and the engine calls it.
-``build_train_step`` belongs to the training slice (ROADMAP A, slice 2).
+``build_train_step`` belongs to the multi-device surface (ROADMAP A10).
 """
 from __future__ import annotations
 

@@ -240,7 +240,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert proc.returncode == 0, proc.stderr
     line = proc.stdout.strip().splitlines()[-1]
     assert line.startswith("BAD [] PORT "), line
-    assert int(line.split()[-1]) >= 15
+    assert int(line.split()[-1]) >= 48
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -264,3 +264,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced", "--requests", "1"])
+    # the training slice
+    from repro_torch.checkpoint.convert import cnn_params_from_jax
+    from repro_torch.core.simulation import make_cnn_problem
+    from repro_torch.launch import elastic_sgd
+    from repro_torch.models import cnn
+    for call in (cnn.init_params, make_cnn_problem,
+                 lambda: cnn_params_from_jax({}),
+                 lambda: elastic_sgd.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    p = cnn.init_params(device="cpu")
+    assert cnn_params_from_jax({k: v.numpy() for k, v in p.items()},
+                               device="cpu")["fc_w"].shape == (3136, 10)
+    init_p, grad_fn, eval_fn = make_cnn_problem(device="cpu")
+    assert 0.0 <= eval_fn(init_p(), np.zeros((2, 28, 28, 1), np.float32),
+                          np.zeros(2, np.int32)) <= 1.0
+    assert elastic_sgd.main(["--device", "cpu", "--iterations", "2",
+                             "--n-data", "200"]) == 0

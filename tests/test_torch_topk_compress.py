@@ -1,0 +1,190 @@
+"""Port parity for the fused error-feedback block-top-k compressor: the
+plain PyTorch version (``repro_torch.kernels.topk_compress``, what CPU
+tensors run) against the JAX package's Pallas kernel in interpret mode
+(``fused_block_topk(..., interpret=True)`` — the kernel body itself, not
+its numpy oracle, which differs on NaN rows), plus the port's
+``GradientCompressor`` flat path against ``repro.core.compression``.
+Inputs are drawn with numpy from a seed and handed to both sides; every
+comparison is bit-exact (``np.array_equal``, NaN == NaN for residuals).
+
+The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it against
+this plain version there, bit-exact, on the same cases.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.compression import GradientCompressor as JComp  # noqa: E402
+from repro.core.compression import decompress_flat as j_decompress  # noqa: E402
+from repro.kernels.topk_compress import fused_block_topk as j_fused  # noqa: E402
+from repro.kernels.topk_compress import (  # noqa: E402
+    fused_block_topk_batched as j_batched)
+from repro_torch.core.compression import GradientCompressor  # noqa: E402
+from repro_torch.core.compression import decompress_flat  # noqa: E402
+from repro_torch.kernels.topk_compress import (COUNTER,  # noqa: E402
+                                               fused_block_topk,
+                                               fused_block_topk_batched)
+
+# the cases of tests/test_kernels_topk.py::test_fused_matches_oracle
+CASES = [(128, 8, 1), (1000, 16, 3), (64, 33, 5), (4096, 128, 2),
+         (7, 8, 3), (5, 4, 9)]
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype \
+        and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+
+
+def _both_batched(g, r, k, W):
+    jv = j_batched(jnp.asarray(g), jnp.asarray(r), k=k, block_w=W,
+                   interpret=True)
+    tv = fused_block_topk_batched(torch.tensor(g), torch.tensor(r), k=k,
+                                  block_w=W)
+    return [np.asarray(x) for x in jv], [x.numpy() for x in tv]
+
+
+@pytest.mark.parametrize("n,W,k", CASES)
+def test_plain_matches_pallas_kernel(n, W, k):
+    rng = np.random.RandomState(n + W + k)
+    g = rng.randn(n).astype(np.float32)
+    r = (rng.randn(n) * 0.3).astype(np.float32)
+    jv = j_fused(jnp.asarray(g), jnp.asarray(r), k=k, block_w=W,
+                 interpret=True)
+    before = COUNTER.count
+    tv = fused_block_topk(torch.tensor(g), torch.tensor(r), k=k, block_w=W)
+    assert COUNTER.count == before          # CPU tensors never launch
+    for a, b in zip(jv, tv):
+        assert _same(a, b.numpy())
+    # conservation: scatter(values) + residual == g + r
+    dense = decompress_flat(tv[0], tv[1], n=n) + tv[2]
+    np.testing.assert_allclose(dense.numpy(), g + r, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,W,k", CASES)
+def test_batched_matches_pallas_and_per_worker(n, W, k):
+    rng = np.random.RandomState(7 * n + k)
+    g = rng.randn(3, n).astype(np.float32)
+    r = (rng.randn(3, n) * 0.2).astype(np.float32)
+    jv, tv = _both_batched(g, r, k, W)
+    for a, b in zip(jv, tv):
+        assert _same(a, b)
+    for w in range(3):
+        sv = fused_block_topk(torch.tensor(g[w]), torch.tensor(r[w]), k=k,
+                              block_w=W)
+        for a, b in zip(tv, sv):
+            assert _same(a[w], b.numpy())
+
+
+def test_nan_zero_and_tie_rows():
+    """A NaN row selects nothing and keeps its residual (the Pallas body's
+    rule), all-zero rows emit (0.0, first column), and magnitude ties go
+    to the lowest column whatever the sign — batched over 3 workers."""
+    rows = np.array([
+        [0.5, np.nan, -2.0, 1.0],          # NaN: nothing selected
+        [0.0, 0.0, 0.0, 0.0],              # all zero
+        [3.0, -3.0, 3.0, 1.0],             # ties, both signs
+        [-0.0, 0.0, -0.0, 0.0],            # signed zeros
+        [1.0, 2.0, -2.0, 2.0],             # tie after the first pick
+        [np.inf, -np.inf, 1.0, 0.0],       # infinities tie too
+    ], np.float32)
+    g = np.stack([rows.reshape(-1), rows[::-1].reshape(-1),
+                  np.round(rows.reshape(-1) * 2)])
+    r = np.zeros_like(g)
+    r[2] = np.where(np.isnan(g[2]), 0.0, 1.0)
+    for k in (1, 2, 4, 9):
+        jv, tv = _both_batched(g, r, k, 4)
+        for a, b in zip(jv, tv):
+            assert _same(a, b)
+    vals, idx, res = tv                      # k clamped to 4
+    assert (vals[0, 0] == 0).all() and (idx[0, 0] == 0).all()
+    assert _same(res[0, :4], rows[0])
+    assert (idx[0, 1] == 4).all() and (vals[0, 1] == 0).all()
+    assert idx[0, 2].tolist() == [8, 9, 10, 11]
+
+
+def test_integer_rows_full_of_ties():
+    rng = np.random.RandomState(5)
+    g = rng.randint(-3, 4, size=(3, 999)).astype(np.float32)
+    r = rng.randint(-1, 2, size=(3, 999)).astype(np.float32)
+    for W, k in ((8, 3), (32, 1), (128, 5)):
+        jv, tv = _both_batched(g, r, k, W)
+        for a, b in zip(jv, tv):
+            assert _same(a, b)
+
+
+def test_block_w_range_is_checked():
+    g = torch.zeros(1, 64)
+    with pytest.raises(ValueError, match="block_w=1025"):
+        fused_block_topk_batched(g, g, k=1, block_w=1025)
+    with pytest.raises(ValueError, match="block_w=0"):
+        fused_block_topk_batched(g, g, k=1, block_w=0)
+    with pytest.raises(ValueError, match="k=0"):
+        fused_block_topk_batched(g, g, k=0, block_w=8)
+    v, i, res = fused_block_topk_batched(g, g, k=2, block_w=1024)
+    assert v.shape == (1, 1, 2) and i.tolist() == [[[0, 0]]]
+
+
+# ---------------------------------------------------------------------------
+# the compressor's flat path
+# ---------------------------------------------------------------------------
+COMPS = [dict(method="blocktopk", frac=1 / 32, block_w=32),
+         dict(method="blocktopk", frac=0.01, block_w=128),
+         dict(method="topk", frac=0.01), dict(method="topk", frac=0.3)]
+
+
+@pytest.mark.parametrize("kw", COMPS, ids=lambda kw: f"{kw['method']}-"
+                         f"{kw['frac']:.3g}")
+def test_keep_counts_lattice_and_wire_bytes(kw):
+    jc, tc = JComp(**kw), GradientCompressor(**kw)
+    for n in (1, 31, 32, 33, 1000, 31786, 100_682_496):
+        assert tc.flat_k(n) == jc.flat_k(n)
+        assert tc.k_lattice(n) == jc.k_lattice(n)
+        assert tc.packed_wire_bytes(n) == jc.packed_wire_bytes(n)
+        for raw in (0, 1, 3, 7.5, n // 3, n, 10 * n):
+            assert tc.quantize_k(n, raw) == jc.quantize_k(n, raw)
+            assert tc.flat_k(n, raw) == jc.flat_k(n, raw)
+
+
+@pytest.mark.parametrize("kw", COMPS, ids=lambda kw: f"{kw['method']}-"
+                         f"{kw['frac']:.3g}")
+@pytest.mark.parametrize("ties", [False, True], ids=["randn", "ties"])
+def test_compress_flat_bit_equal(kw, ties):
+    rng = np.random.RandomState(11)
+    n = 1000
+    if ties:        # integer-valued: |c| repeats everywhere
+        g = rng.randint(-4, 5, size=n).astype(np.float32)
+        r = rng.randint(-1, 2, size=n).astype(np.float32)
+    else:
+        g = rng.randn(n).astype(np.float32)
+        r = (rng.randn(n) * 0.1).astype(np.float32)
+    jc, tc = JComp(**kw), GradientCompressor(**kw)
+    for k in (None, 64, 200):
+        jm, jr = jc.compress_flat(jnp.asarray(g), jnp.asarray(r), k=k)
+        tm, tr = tc.compress_flat(torch.tensor(g), torch.tensor(r), k=k)
+        assert _same(jm.values, tm.values.numpy())
+        assert _same(jm.indices, tm.indices.numpy())
+        assert _same(jr, tr.numpy())
+        assert tm.wire_bytes() == jm.wire_bytes() \
+            == tc.packed_wire_bytes(n, k)
+        assert _same(j_decompress(jm.values, jm.indices, n=n),
+                     tm.dense().numpy())
+
+
+def test_decompress_drops_out_of_range_indices():
+    """JAX drops scatter indices >= n (tail-pad pairs); so must the port."""
+    vals = np.array([1.5, 0.0, -2.0, 0.0], np.float32)
+    idx = np.array([3, 7, 0, 9], np.int32)
+    want = np.asarray(j_decompress(jnp.asarray(vals), jnp.asarray(idx), n=5))
+    got = decompress_flat(torch.tensor(vals), torch.tensor(idx), n=5)
+    assert _same(want, got.numpy())
+
+
+def test_unported_methods_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        GradientCompressor("randk").compress_flat(torch.zeros(8), None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        GradientCompressor("topk").roundtrip({}, None)
