@@ -39,7 +39,22 @@ result):
    workers, block_w 128, 3 reduce steps; the first step's kernel output
    bit-exact against the plain version on the same card tensors; kernel,
    plain and ``torch.topk`` times beside the bandwidth bound;
-7. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
+7. kernel API (slice 3) — the port's public kernel API
+   (``repro_torch.kernels``) at full width, with the launch counters
+   reset just before and read just after: ``flash_attention`` over
+   ``mlitb-lm-100m``'s prefill (16 slots x 512 tokens, f32) and
+   ``qwen3-4b``'s heads at 4096 tokens (bf16), ``ssd_scan`` at
+   ``mamba2-780m``'s widths (B 4, S 2048, f32), ``block_topk`` over
+   ``mlitb-lm-100m``'s flat buffer (f32 and bf16) and the conv net's;
+8. flash_attention, ssd_scan, block_topk — each kernel against its plain
+   PyTorch version: the JAX kernel tests' cases and the edge cases
+   (S != T, fully masked rows, ragged non-causal keys, D = 256, sliding
+   windows at full-width heads; Q not a power of two, bf16, N = 64; NaN /
+   signed-zero / infinity / tie rows, W > 1024), then the full-width
+   outputs of phase 7; then each kernel's time per launch beside its plain
+   version's, a library yardstick's (SDPA; ``torch.topk``; none for the
+   scan) and the least time the card could take;
+9. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. Imports ``torch``,
@@ -65,12 +80,17 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (GradientCompressor, MasterReducer,  # noqa: E402
                               flat_spec)
+import repro_torch.kernels as api  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.topk_compress import ops as tk_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
-    fused_block_topk_batched_ref)
+    block_topk_flat_ref, fused_block_topk_batched_ref)
 from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim import adagrad  # noqa: E402
@@ -90,6 +110,8 @@ TRAIN_SEEDS = (0, 1, 2, 3)
 # CUDA cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+# bf16 through the tensor cores, dense: the least time for bf16 inputs
+BF16_FLOPS = 989e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 GAP_TIE = 1e-4
 
@@ -721,10 +743,418 @@ def phase_reduce_lm(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the public kernel API at full width
+# ---------------------------------------------------------------------------
+# flash_attention: mlitb-lm-100m's prefill over the served engine's 16
+# slots x 512 tokens (f32), and qwen3-4b's heads at train_4k's length
+# (bf16)
+FA_SHAPES = {
+    "mlitb-lm-100m prefill": dict(B=MAX_BATCH, H=12, K=4, S=MAX_SEQ,
+                                  T=MAX_SEQ, D=64, dtype=torch.float32),
+    "qwen3-4b 4k": dict(B=1, H=32, K=8, S=4096, T=4096, D=128,
+                        dtype=torch.bfloat16)}
+# ssd_scan: mamba2-780m (d_inner 3072 = 48 heads x 64, N 128, chunk 128)
+SSD_SHAPE = dict(B=4, S=2048, nh=48, hd=64, N=128, chunk=128)
+# block_topk: mlitb-lm-100m's flat buffer (blocktopk frac 1/128) and the
+# conv net's (frac 1/32)
+BT_SHAPES = {"lm f32": (100_682_496, 128, torch.float32),
+             "lm bf16": (100_682_496, 128, torch.bfloat16),
+             "cnn f32": (31_786, 32, torch.float32)}
+SLICE3 = ("flash_attention", "ssd_scan", "block_topk")
+
+
+def fa_inputs(gen, *, B, H, K, S, T, D, dtype):
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((B, H, S, D), (B, K, T, D), (B, K, T, D)))
+
+
+def ssd_inputs(gen, *, B, S, nh, hd, N, dtype=torch.float32, **_):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(B, S, nh, hd)
+    dt = F.softplus(randn(B, S, nh))
+    A = -torch.exp(randn(nh) * 0.5)
+    Bm, Cm = randn(B, S, N) * 0.5, randn(B, S, N) * 0.5
+    return (x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype))
+
+
+def phase_api(card: str) -> dict:
+    """The slice's main path: ``repro_torch.kernels`` at full width, the
+    launch counters set to 0 just before and read just after."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    fa_in = {n: fa_inputs(gen, **shape) for n, shape in FA_SHAPES.items()}
+    ssd_in = ssd_inputs(gen, **SSD_SHAPE)
+    bt_in = {n: torch.randn(size, generator=gen, device="cuda").to(dtype)
+             for n, (size, _, dtype) in BT_SHAPES.items()}
+    torch.cuda.synchronize()
+    runtime.reset_counters()
+    t0 = time.perf_counter()
+    fa_out = {n: api.flash_attention(*a) for n, a in fa_in.items()}
+    ssd_out = api.ssd_scan(*ssd_in, chunk=SSD_SHAPE["chunk"])
+    bt_out = {n: api.block_topk(bt_in[n], block_w=W)
+              for n, (_, W, _) in BT_SHAPES.items()}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: runtime.COUNTERS[n].count for n in SLICE3}
+    want = {"flash_attention": len(FA_SHAPES), "ssd_scan": 1,
+            "block_topk": len(BT_SHAPES)}
+    others = {n: c.count for n, c in runtime.COUNTERS.items()
+              if n not in SLICE3 and c.count}
+    if launches != want or others:
+        raise AssertionError(f"kernel API launches {launches} (want {want}), "
+                             f"other kernels {others}")
+    for n, a in fa_in.items():
+        if fa_out[n].shape != a[0].shape or fa_out[n].dtype != a[0].dtype \
+                or not bool(torch.isfinite(fa_out[n]).all()):
+            raise AssertionError(f"flash_attention {n}: bad output")
+    if ssd_out.shape != ssd_in[0].shape \
+            or not bool(torch.isfinite(ssd_out).all()):
+        raise AssertionError("ssd_scan: bad output")
+    for n, (size, W, dtype) in BT_SHAPES.items():
+        kept = (bt_out[n] != 0).sum()
+        if bt_out[n].dtype != dtype or int(kept) > -(-size // W):
+            raise AssertionError(f"block_topk {n}: {int(kept)} entries kept")
+    print(f"[api] repro_torch.kernels at full width: flash_attention "
+          f"({', '.join(FA_SHAPES)}), ssd_scan (mamba2-780m, B 4, S 2048), "
+          f"block_topk ({', '.join(BT_SHAPES)}): launches {launches} in "
+          f"{seconds * 1e3:.1f} ms | {card}")
+    return {"launches": launches, "seconds": seconds,
+            "flash_attention": (fa_in, fa_out), "ssd_scan": (ssd_in, ssd_out),
+            "block_topk": (bt_in, bt_out)}
+
+
+def fa_valid(S: int, T: int, causal: bool, window: int) -> torch.Tensor:
+    s_pos = torch.arange(S, device="cuda")[:, None]
+    t_pos = torch.arange(T, device="cuda")[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= t_pos <= s_pos
+    if window:
+        mask &= t_pos > s_pos - window
+    return mask
+
+
+def fa_check(name: str, q, k, v, *, causal=True, window=0, out=None
+             ) -> float:
+    if out is None:
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"flash_attention {name}: {out.shape}/"
+                             f"{out.dtype} vs {ref.shape}/{ref.dtype}")
+    err = float((out.float() - ref.float()).abs().max())
+    if not np.isfinite(err) or err > TOL[q.dtype]:
+        raise AssertionError(f"flash_attention {name}: max |kernel - plain| "
+                             f"= {err} > {TOL[q.dtype]}")
+    dead = ~fa_valid(q.shape[2], k.shape[2], causal, window).any(dim=1)
+    if bool(dead.any()) and bool((out[:, :, dead] != 0).any()):
+        raise AssertionError(f"flash_attention {name}: rows with no valid "
+                             f"key are not exact zeros")
+    print(f"[kernel] flash_attention {name}: max |kernel - plain| = "
+          f"{err:.3e} (bound {TOL[q.dtype]:.0e})"
+          + (f", {int(dead.sum())} rows with no key exact zeros"
+             if bool(dead.any()) else ""))
+    return err
+
+
+def fa_bound(q, k, causal=True, window=0) -> dict:
+    """Least time: q, k, v read and out written once over HBM bandwidth,
+    or the two products' multiply-adds (4 D flops per valid (query, key)
+    pair; the exps not counted) over the peak for the inputs' type."""
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    pairs = int(fa_valid(S, T, causal, window).sum())
+    flops = 4 * D * pairs * B * H
+    nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * K * T * D)
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / peak * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_fa(name: str, q, k, v, card: str, iters: int, plain_iters: int
+            ) -> dict:
+    def kernel():
+        fa_ops.flash_attention(q, k, v)
+
+    def plain():
+        attention_ref(q, k, v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    # the same call on K/V repeated to H heads beforehand (not timed),
+    # which SDPA's fused backends take where enable_gqa is not supported
+    G = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+
+    def sdpa_expanded():
+        F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
+
+    ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+    library_ms = cuda_ms(sdpa, iters)
+    expanded_ms = cuda_ms(sdpa_expanded, iters)
+    ms2 = cuda_ms(kernel, iters)
+    sdpa_err = float((sdpa().float() - attention_ref(q, k, v).float())
+                     .abs().max())
+    res = {"ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+           "library_ms": library_ms, "sdpa_expanded_kv_ms": expanded_ms,
+           "sdpa_err": sdpa_err, **fa_bound(q, k)}
+    print(f"[kernel] flash_attention timing, {name} {tuple(q.shape)} kv "
+          f"{tuple(k.shape)} {str(q.dtype)[6:]}, causal: kernel "
+          f"{res['ms']:.3f} ms/launch ({ms:.3f}, {ms2:.3f}), plain "
+          f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms (|SDPA - plain| "
+          f"{sdpa_err:.1e}; on K/V repeated to H heads {expanded_ms:.3f} "
+          f"ms), bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}, {res['flops'] / 1e9:.2f} GFLOP, "
+          f"{res['bytes'] / 1e6:.1f} MB) | {card}")
+    return res
+
+
+def phase_flash_attention(card: str, main: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+
+    def case(name, B, H, K, S, T, D, dtype=torch.float32, **kw):
+        args = fa_inputs(gen, B=B, H=H, K=K, S=S, T=T, D=D, dtype=dtype)
+        errs[dtype] = max(errs[dtype], fa_check(name, *args, **kw))
+
+    # the JAX kernel tests' cases (tests/test_kernels_flash.py)
+    for c in ((1, 1, 1, 32, 32, 32, 0), (2, 4, 2, 128, 128, 64, 0),
+              (1, 8, 1, 64, 64, 128, 0), (2, 4, 4, 96, 96, 64, 0),
+              (1, 4, 2, 128, 128, 64, 32), (1, 2, 2, 256, 256, 32, 96)):
+        case(f"case {c}", *c[:6], window=c[6])
+    case("bf16 (2,4,2,64,64,64)", 2, 4, 2, 64, 64, 64, torch.bfloat16)
+    # S != T, rows with no valid key, ragged keys without causality
+    case("S<T", 1, 4, 2, 48, 80, 32)
+    case("S>T window 16", 1, 2, 1, 80, 48, 32, window=16)
+    case("causal window 1", 1, 2, 2, 32, 32, 32, window=1)
+    case("non-causal window past the keys", 1, 2, 2, 64, 16, 32,
+         causal=False, window=8)
+    case("ragged non-causal T=24", 1, 2, 1, 40, 24, 32, causal=False)
+    case("ragged non-causal T=40", 2, 4, 2, 40, 40, 64, causal=False)
+    # D = 256 (paligemma-3b's heads, MQA) and sliding windows at
+    # full-width heads
+    for dtype in (torch.float32, torch.bfloat16):
+        case("paligemma-3b heads D=256", 1, 8, 1, 1024, 1024, 256, dtype)
+    case("qwen3-4b heads window 512", 1, 32, 8, 2048, 2048, 128,
+         torch.bfloat16, window=512)
+    case("mlitb-lm-100m heads window 128", 4, 12, 4, 512, 512, 64,
+         window=128)
+    # the main path's full-width outputs
+    fa_in, fa_out = main["flash_attention"]
+    for n, args in fa_in.items():
+        errs[args[0].dtype] = max(errs[args[0].dtype],
+                                  fa_check(f"{n} (main path)", *args,
+                                           out=fa_out[n]))
+    timing = {n: time_fa(n, *args, card, iters=8 if n.startswith("qwen")
+                         else 20, plain_iters=2 if n.startswith("qwen")
+                         else 5)
+              for n, args in fa_in.items()}
+    return {"max_abs_err": errs[torch.float32],
+            "max_abs_err_bf16": errs[torch.bfloat16], "timing": timing}
+
+
+def ssd_tol(ref: torch.Tensor) -> float:
+    """The JAX tests' 5e-4 at S = 256 with values O(5), scaled by the
+    largest |y| of the case: the error grows with y's size and with the
+    depth of the sums (the float32 cumsum of dt * A)."""
+    return 5e-4 * max(1.0, float(ref.float().abs().max()) / 5.0)
+
+
+def ssd_check(name: str, args, chunk: int, out=None) -> float:
+    if out is None:
+        out = ssd_ops.ssd_scan(*args, chunk=chunk)
+    ref = ssd_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"ssd_scan {name}: {out.shape}/{out.dtype} vs "
+                             f"{ref.shape}/{ref.dtype}")
+    err = float((out.float() - ref.float()).abs().max())
+    tol = 0.15 if out.dtype == torch.bfloat16 else ssd_tol(ref)
+    if not np.isfinite(err) or err > tol:
+        raise AssertionError(f"ssd_scan {name}: max |kernel - plain| = "
+                             f"{err} > {tol}")
+    print(f"[kernel] ssd_scan {name}: max |kernel - plain| = {err:.3e} "
+          f"(bound {tol:.1e}, max |y| {float(ref.float().abs().max()):.1f})")
+    return err
+
+
+def ssd_bound(B, S, nh, hd, N, Q) -> dict:
+    """Least time: x, dt, A, Bm, Cm read and y written once, or the
+    multiply-adds x 2 (C B^T once per (b, chunk) and causal half; G x
+    causal half; the state's read-out and update) over the f32 peak."""
+    nc = -(-S // Q)
+    tri = Q * (Q + 1) // 2
+    flops = 2 * (B * nc * N * tri
+                 + B * nh * nc * (hd * tri + 2 * Q * N * hd))
+    nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * N)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_ssd(card: str, main: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err = 0.0
+    # the JAX kernel tests' cases (tests/test_kernels_ssd.py)
+    for B, S, nh, hd, N, chunk in ((1, 32, 1, 32, 16, 16),
+                                   (2, 64, 4, 32, 64, 16),
+                                   (1, 128, 2, 64, 128, 32),
+                                   (2, 50, 3, 32, 64, 16),
+                                   (1, 256, 8, 64, 128, 128)):
+        args = ssd_inputs(gen, B=B, S=S, nh=nh, hd=hd, N=N)
+        err = max(err, ssd_check(f"case {(B, S, nh, hd, N, chunk)}", args,
+                                 chunk))
+    # Q = 80 (S < chunk, not a power of two), a ragged tail, N = 64
+    # (zamba2-7b's d_state, 112 heads of 64), and bf16 inputs
+    err = max(err, ssd_check("Q=80", ssd_inputs(gen, B=2, S=80, nh=2, hd=32,
+                                                 N=32), 128))
+    err = max(err, ssd_check("S=300 chunk 128", ssd_inputs(
+        gen, B=2, S=300, nh=4, hd=64, N=128), 128))
+    err = max(err, ssd_check("zamba2-7b N=64", ssd_inputs(
+        gen, B=1, S=1024, nh=112, hd=64, N=64), 128))
+    bf16 = ssd_check("bf16", ssd_inputs(gen, B=1, S=64, nh=2, hd=32, N=32,
+                                        dtype=torch.bfloat16), 16)
+    # the main path's full-width output
+    args, out = main["ssd_scan"]
+    chunk = SSD_SHAPE["chunk"]
+    err = max(err, ssd_check("mamba2-780m B=4 S=2048 (main path)", args,
+                             chunk, out=out))
+
+    def kernel():
+        ssd_ops.ssd_scan(*args, chunk=chunk)
+
+    def plain():
+        ssd_scan_ref(*args, chunk=chunk)
+
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    ms2 = cuda_ms(kernel, 10)
+    sh = SSD_SHAPE
+    res = {"ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+           "library_ms": None,
+           **ssd_bound(sh["B"], sh["S"], sh["nh"], sh["hd"], sh["N"], chunk)}
+    print(f"[kernel] ssd_scan timing, mamba2-780m (B {sh['B']}, S {sh['S']}, "
+          f"nh {sh['nh']}, hd {sh['hd']}, N {sh['N']}, chunk {chunk}, f32): "
+          f"kernel {res['ms']:.3f} ms/launch ({ms:.3f}, {ms2:.3f}), plain "
+          f"{plain_ms:.3f} ms, no library call, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}, {res['flops'] / 1e9:.2f} GFLOP, "
+          f"{res['bytes'] / 1e6:.1f} MB) | {card}")
+    return {"max_abs_err": err, "max_abs_err_bf16": bf16, **res}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit: -0.0 differs from +0.0, NaN payloads compared."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def bt_check(name: str, x: torch.Tensor, W: int, out=None) -> None:
+    if out is None:
+        out = tk_ops.block_topk(x, block_w=W)
+    ref = block_topk_flat_ref(x, block_w=W)
+    torch.cuda.synchronize()
+    if not same_bits(out, ref):
+        diff = int((out != ref).sum()) if out.shape == ref.shape else -1
+        raise AssertionError(f"block_topk {name}: differs from the plain "
+                             f"version ({diff} entries)")
+    print(f"[kernel] block_topk {name}: bit-exact")
+
+
+def bt_bound(n: int, esize: int) -> dict:
+    """Least time: x read and y written once, or an abs and a compare per
+    entry over the f32 peak."""
+    nbytes = 2 * n * esize
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 2 * n / F32_FLOPS * 1e3
+    return {"bytes": nbytes, "ops": 2 * n, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_bt(x: torch.Tensor, W: int, *, iters: int, plain_iters: int,
+            graph: bool) -> dict:
+    """Kernel, plain version and the ``torch.topk`` yardstick (top-1 of
+    |x| per W-row, zero-padded: no scatter back, no NaN rule, no promised
+    tie order), from CUDA graphs or eagerly as ``time_fused``."""
+    pad = (-x.numel()) % W
+
+    def kernel():
+        tk_ops.block_topk(x, block_w=W)
+
+    def plain():
+        block_topk_flat_ref(x, block_w=W)
+
+    def library():
+        c = x.abs()
+        if pad:
+            c = F.pad(c, (0, pad))
+        torch.topk(c.view(-1, W), 1, dim=1)
+
+    timer = graph_ms if graph else cuda_ms
+    ms, plain_ms = timer(kernel, iters), timer(plain, plain_iters)
+    library_ms, ms2 = timer(library, iters), timer(kernel, iters)
+    return {"ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            **bt_bound(x.numel(), x.element_size())}
+
+
+def phase_block_topk(card: str, main: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    # the JAX kernel tests' shapes (tests/test_kernels_topk.py), W > 1024
+    for shape, W in (((128,), 8), ((1000,), 16), ((64, 33), 128),
+                     ((3, 5, 7), 8), ((4096,), 128), ((2, 2), 8),
+                     ((5000,), 2048), ((3, 1500), 1100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            bt_check(f"{shape} W={W} {str(dtype)[6:]}", x, W)
+    # NaN, all-zero, signed-zero, tie and infinity rows; a ragged tail
+    nan, inf = float("nan"), float("inf")
+    rows = torch.tensor([[0.5, nan, -2.0, 1.0], [0.0] * 4,
+                         [-0.0, 0.0, -0.0, 0.0], [3.0, -3.0, 3.0, 1.0],
+                         [-3.0, 3.0, 1.0, -0.0], [inf, -inf, 1.0, 0.0],
+                         [-inf, 2.0, nan, 0.0], [1.0, -0.0, -0.0, -5.0]],
+                        device="cuda").reshape(-1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for x in (rows, rows[:-2]):
+            bt_check(f"NaN/zero/tie/inf rows n={x.numel()} "
+                     f"{str(dtype)[6:]}", x.to(dtype), 4)
+    gi = torch.randint(-3, 4, (4999,), generator=gen, device="cuda").float()
+    bt_check("integer ties W=64", gi, 64)
+    # the main path's full-width outputs
+    bt_in, bt_out = main["block_topk"]
+    for n, (_, W, _) in BT_SHAPES.items():
+        bt_check(f"{n} n={bt_in[n].numel()} W={W} (main path)", bt_in[n], W,
+                 out=bt_out[n])
+    timing = {}
+    for n, (_, W, _) in BT_SHAPES.items():
+        small = n.startswith("cnn")
+        timing[n] = t = time_bt(bt_in[n], W, iters=100 if small else 20,
+                                plain_iters=20 if small else 3, graph=small)
+        print(f"[kernel] block_topk timing, {n} (n={bt_in[n].numel()}, W={W}"
+              f"{', CUDA graphs, L2-warm' if small else ''}): kernel "
+              f"{t['ms'] * 1e3:.2f} us/launch ({t['ms_runs'][0] * 1e3:.2f}, "
+              f"{t['ms_runs'][1] * 1e3:.2f}), plain {t['plain_ms'] * 1e3:.1f} "
+              f"us, torch.topk {t['library_ms'] * 1e3:.1f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
+              f"{t['bytes'] / 1e6:.2f} MB) | {card}")
+    return {"max_abs_err": 0.0, "timing": timing}
+
+
 def build_all() -> dict:
     """Build every kernel from this checkout, one nvcc per source, all
     started together."""
-    libs = {"flash_decode": fd_ops.library, "fused_compress": tk_ops.library}
+    libs = {"flash_decode": fd_ops.library, "fused_compress": tk_ops.library,
+            "block_topk": tk_ops.block_topk_library,
+            "flash_attention": fa_ops.library, "ssd_scan": ssd_ops.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as ex:
         futs = {name: ex.submit(fn) for name, fn in libs.items()}
@@ -754,7 +1184,15 @@ def main() -> int:
     srv = phase_serve(card)
     train = phase_train(card, fused["demo"]["ms"])
     lm = phase_reduce_lm(card)
+    main_api = phase_api(card)
+    fa = phase_flash_attention(card, main_api)
+    ssd = phase_ssd(card, main_api)
+    bt = phase_block_topk(card, main_api)
+    launches = main_api.pop("launches")
+    del main_api
     demo = fused["demo"]
+    fa_t = fa["timing"]["mlitb-lm-100m prefill"]
+    bt_t = bt["timing"]["lm f32"]
     rows = [
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
@@ -771,6 +1209,28 @@ def main() -> int:
          "ms": demo["ms"], "plain_ms": demo["plain_ms"],
          "bound_ms": demo["bound_ms"], "bound_by": demo["bound_by"],
          "library_ms": demo["library_ms"]},
+        {"name": "block_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/topk_compress/block_topk.cu",
+         "replaces": "src/repro/kernels/topk_compress/topk_compress.py:22",
+         "launches": launches["block_topk"],
+         "max_abs_err": bt["max_abs_err"], "ms": bt_t["ms"],
+         "plain_ms": bt_t["plain_ms"], "bound_ms": bt_t["bound_ms"],
+         "bound_by": bt_t["bound_by"], "library_ms": bt_t["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:32",
+         "launches": launches["flash_attention"],
+         "max_abs_err": fa["max_abs_err"], "ms": fa_t["ms"],
+         "plain_ms": fa_t["plain_ms"], "bound_ms": fa_t["bound_ms"],
+         "bound_by": fa_t["bound_by"], "library_ms": fa_t["library_ms"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:25",
+         "launches": launches["ssd_scan"], "max_abs_err": ssd["max_abs_err"],
+         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+         "library_ms": ssd["library_ms"]},
     ]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -779,7 +1239,9 @@ def main() -> int:
          "build_s": {k: b.seconds for k, b in built.items()},
          "ptxas": {k: b.log for k, b in built.items()}, "kernel": kern,
          "fused_compress": fused, "serve": srv, "train": train,
-         "reduce_lm": lm, "total_s": time.perf_counter() - t_start},
+         "reduce_lm": lm, "api_launches": launches, "flash_attention": fa,
+         "ssd_scan": ssd, "block_topk": bt,
+         "total_s": time.perf_counter() - t_start},
         indent=1, default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,13 +1,15 @@
-"""Public wrappers of the fused error-feedback block-top-k kernel.
+"""Public wrappers of the block-top-k kernels.
 
-``fused_block_topk_batched`` dispatches on the tensors' device: CPU
-tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
-the hand-written ``sm_90a`` kernel (``topk_compress.cu``), built with nvcc
-at first use. A build or launch failure raises; nothing falls back to the
-plain version on the card. ``COUNTER`` counts kernel launches (and only
-those). The kernel does the JAX wrapper's tail padding and global-index
-arithmetic itself (it reads the (n_workers, n) buffers in place and
-treats columns past n as zeros), so the card path copies nothing.
+``block_topk`` (top-1 per block, the Pallas ``_topk_kernel``) and
+``fused_block_topk_batched`` (the fused error-feedback channel, the
+Pallas ``_fused_kernel``) dispatch on the tensors' device: CPU tensors
+take the plain PyTorch versions (``ref.py``); CUDA tensors launch the
+hand-written ``sm_90a`` kernels (``block_topk.cu``, ``topk_compress.cu``),
+built with nvcc at first use. A build or launch failure raises; nothing
+falls back to the plain version on the card. ``BLOCK_TOPK_COUNTER`` and
+``COUNTER`` count kernel launches (and only those). Both kernels do the
+JAX wrappers' tail padding themselves (they read the buffers in place
+and treat columns past n as zeros), so the card path copies nothing.
 """
 from __future__ import annotations
 
@@ -19,10 +21,13 @@ import torch
 
 from repro_torch.kernels.build import BuiltLibrary, build, check_launch
 from repro_torch.kernels.runtime import launch_counter
-from repro_torch.kernels.topk_compress.ref import fused_block_topk_batched_ref
+from repro_torch.kernels.topk_compress.ref import (
+    block_topk_flat_ref, fused_block_topk_batched_ref)
 
 SOURCE = Path(__file__).with_name("topk_compress.cu")
+BLOCK_TOPK_SOURCE = Path(__file__).with_name("block_topk.cu")
 COUNTER = launch_counter("fused_compress")
+BLOCK_TOPK_COUNTER = launch_counter("block_topk")
 MAX_BLOCK_W = 1024           # 32 lanes x 32 registers per lane
 
 
@@ -97,3 +102,47 @@ def fused_block_topk(g: torch.Tensor, r: torch.Tensor, *, k: int,
     vals, idx, res = fused_block_topk_batched(
         g.reshape(1, -1), r.reshape(1, -1), k=k, block_w=block_w)
     return vals[0], idx[0], res[0]
+
+
+# ---------------------------------------------------------------------------
+# top-1 per block, no residual
+# ---------------------------------------------------------------------------
+def _declare_block_topk(lib: ctypes.CDLL) -> None:
+    lib.block_topk_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
+    lib.block_topk_launch.restype = ctypes.c_int
+
+
+def block_topk_library() -> BuiltLibrary:
+    """Build (first call only) and load the top-1 kernel's library."""
+    return build("block_topk", [BLOCK_TOPK_SOURCE],
+                 configure=_declare_block_topk)
+
+
+def block_topk(x: torch.Tensor, *, block_w: int = 128) -> torch.Tensor:
+    """Keep the first max-|.| entry of every contiguous ``block_w`` run
+    of x (any shape, the tail padded with zeros) and zero the rest;
+    same shape and dtype. A run holding a NaN comes out all zeros."""
+    if block_w < 1:
+        raise ValueError(f"block_topk: block_w={block_w} must be >= 1")
+    if x.device.type == "cpu":
+        return block_topk_flat_ref(x, block_w=block_w)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_topk: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"block_topk: dtype {x.dtype}; the kernel takes "
+                        f"float32 or bfloat16")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = block_topk_library().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.block_topk_launch(
+            x.data_ptr(), y.data_ptr(), x.numel(), block_w,
+            int(x.dtype == torch.bfloat16), x.device.index, stream)
+    check_launch("block_topk", code)
+    BLOCK_TOPK_COUNTER.count += 1
+    return y

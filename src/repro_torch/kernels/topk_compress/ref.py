@@ -1,4 +1,20 @@
-"""Plain PyTorch version of the fused error-feedback block-top-k kernel.
+"""Plain PyTorch versions of the block-top-k kernels.
+
+``block_topk_ref`` follows the Pallas body ``_topk_kernel`` (the top-1,
+no-residual kernel): per (R, W) row, in fp32,
+
+    best  = max |x|              (NaN if the row holds a NaN)
+    first = lowest column with |x| >= best, else W (nothing kept)
+    y     = x at column ``first``, +0.0 elsewhere, in x's dtype
+
+So the first max wins, a row holding a NaN comes out all zeros, the kept
+entry keeps its sign bit (an all-zero row keeps ``x[0]``, -0.0 included)
+and ±inf is kept. The JAX package's numpy-style oracle
+``block_topk_ref`` keeps the NaN instead; the port follows the kernel.
+``block_topk_flat_ref`` adds the JAX wrapper's flattening and zero tail
+padding.
+
+The rest of this module is the fused error-feedback kernel's version.
 
 ``fused_compress_ref`` follows the Pallas body ``_fused_kernel``
 (``repro/kernels/topk_compress/topk_compress.py``) step for step, not the
@@ -27,6 +43,30 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def block_topk_ref(x: torch.Tensor) -> torch.Tensor:
+    """x: (R, W) -> keep the first max-|.| entry of each row, zeros
+    elsewhere, in x's dtype; a row holding a NaN is all zeros."""
+    R, W = x.shape
+    mag = x.float().abs()
+    best = torch.amax(mag, dim=1, keepdim=True)             # NaN propagates
+    col = torch.arange(W, dtype=torch.int32, device=x.device)[None, :]
+    first = torch.where(mag >= best, col,
+                        torch.full_like(col, W)).amin(dim=1, keepdim=True)
+    return torch.where(col == first, x, torch.zeros_like(x))
+
+
+def block_topk_flat_ref(x: torch.Tensor, *, block_w: int) -> torch.Tensor:
+    """Any shape: flatten, zero-pad to a multiple of ``block_w``, keep
+    one entry per ``block_w`` run, cut back and restore the shape."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pad = (-n) % block_w
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    y = block_topk_ref(flat.reshape(-1, block_w))
+    return y.reshape(-1)[:n].reshape(x.shape)
 
 
 def fused_compress_ref(g: torch.Tensor, r: torch.Tensor, k: int

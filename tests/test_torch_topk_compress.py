@@ -1,4 +1,5 @@
-"""Port parity for the fused error-feedback block-top-k compressor: the
+"""Port parity for the block-top-k kernels. The top-1 ``block_topk``
+(``_topk_kernel``) and the fused error-feedback block-top-k compressor: the
 plain PyTorch version (``repro_torch.kernels.topk_compress``, what CPU
 tensors run) against the JAX package's Pallas kernel in interpret mode
 (``fused_block_topk(..., interpret=True)`` — the kernel body itself, not
@@ -19,14 +20,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.compression import GradientCompressor as JComp  # noqa: E402
 from repro.core.compression import decompress_flat as j_decompress  # noqa: E402
+from repro.kernels.topk_compress import block_topk as j_block_topk  # noqa: E402
 from repro.kernels.topk_compress import fused_block_topk as j_fused  # noqa: E402
 from repro.kernels.topk_compress import (  # noqa: E402
     fused_block_topk_batched as j_batched)
 from repro_torch.core.compression import GradientCompressor  # noqa: E402
 from repro_torch.core.compression import decompress_flat  # noqa: E402
-from repro_torch.kernels.topk_compress import (COUNTER,  # noqa: E402
-                                               fused_block_topk,
-                                               fused_block_topk_batched)
+from repro_torch.kernels.topk_compress import (  # noqa: E402
+    BLOCK_TOPK_COUNTER, COUNTER, block_topk, block_topk_ref,
+    fused_block_topk, fused_block_topk_batched)
 
 # the cases of tests/test_kernels_topk.py::test_fused_matches_oracle
 CASES = [(128, 8, 1), (1000, 16, 3), (64, 33, 5), (4096, 128, 2),
@@ -126,6 +128,100 @@ def test_block_w_range_is_checked():
         fused_block_topk_batched(g, g, k=0, block_w=8)
     v, i, res = fused_block_topk_batched(g, g, k=2, block_w=1024)
     assert v.shape == (1, 1, 2) and i.tolist() == [[[0, 0]]]
+
+
+# ---------------------------------------------------------------------------
+# top-1 per block (the Pallas ``_topk_kernel``): bit for bit, signed zeros
+# included, against the kernel body in interpret mode
+# ---------------------------------------------------------------------------
+def _bits(a):
+    """The raw bit patterns of a float32 / bfloat16 array (numpy, jax or
+    torch), so -0.0 and +0.0 differ."""
+    if isinstance(a, torch.Tensor):
+        a = a.view(torch.int16 if a.element_size() == 2 else torch.int32)
+        return a.numpy().view(np.uint16 if a.element_size() == 2
+                              else np.uint32)
+    a = np.asarray(a)
+    return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+
+
+def _topk_both(x, W, dtype="float32"):
+    """x: float32 numpy of any shape -> (JAX kernel's bits, port's bits),
+    after both sides cast x to ``dtype``."""
+    jy = j_block_topk(jnp.asarray(x, getattr(jnp, dtype)), block_w=W,
+                      interpret=True)
+    tx = torch.tensor(x).to(getattr(torch, dtype))
+    before = BLOCK_TOPK_COUNTER.count
+    ty = block_topk(tx, block_w=W)
+    assert BLOCK_TOPK_COUNTER.count == before   # CPU tensors never launch
+    assert ty.dtype == tx.dtype and ty.shape == tx.shape
+    assert str(jy.dtype) == dtype
+    return _bits(jy), _bits(ty)
+
+
+# the shapes of tests/test_kernels_topk.py::test_matches_oracle, and
+# W > 1024 (any W: the kernel has no cap)
+TOPK_SHAPES = [((128,), 8), ((1000,), 16), ((64, 33), 128), ((3, 5, 7), 8),
+               ((4096,), 128), ((2, 2), 8), ((5000,), 2048), ((3, 1500), 1100)]
+
+
+@pytest.mark.parametrize("shape,W", TOPK_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_topk_bit_exact_with_pallas_kernel(shape, W, dtype):
+    rng = np.random.RandomState(int(np.prod(shape)) + W)
+    x = rng.randn(*shape).astype(np.float32)
+    jb, tb = _topk_both(x, W, dtype)
+    assert np.array_equal(jb, tb)
+
+
+def test_block_topk_special_rows():
+    """The first max wins whatever the sign; a row holding a NaN comes
+    out all zeros (the Pallas body's rule, not the numpy oracle's); the
+    kept value keeps its sign bit (an all-zero row keeps x[0], -0.0
+    included); +-inf is kept; the tail padding never wins."""
+    rows = np.array([
+        [0.5, np.nan, -2.0, 1.0],          # NaN: all zeros
+        [0.0, 0.0, 0.0, 0.0],              # all zero: keeps x[0]
+        [-0.0, 0.0, -0.0, 0.0],            # keeps x[0] = -0.0
+        [3.0, -3.0, 3.0, 1.0],             # first of the ties
+        [-3.0, 3.0, 1.0, -0.0],            # first of the ties, negative
+        [np.inf, -np.inf, 1.0, 0.0],       # infinities tie too
+        [-np.inf, 2.0, np.nan, 0.0],       # NaN beats inf: all zeros
+        [1.0, -0.0, -0.0, -5.0],
+    ], np.float32)
+    for dtype in ("float32", "bfloat16"):
+        for x in (rows.reshape(-1), rows.reshape(-1)[:-2],   # ragged tail
+                  np.concatenate([rows.reshape(-1), [-0.0]]).astype(
+                      np.float32)):
+            jb, tb = _topk_both(x, 4, dtype)
+            assert np.array_equal(jb, tb)
+    y = block_topk(torch.tensor(rows.reshape(-1)), block_w=4).reshape(8, 4)
+    assert (_bits(y[0]) == 0).all() and (_bits(y[6]) == 0).all()
+    assert _bits(y[2]).tolist() == [0x80000000, 0, 0, 0]
+    assert y[3].tolist() == [3.0, 0, 0, 0] and y[4].tolist() == [-3.0, 0, 0, 0]
+    assert y[5].tolist() == [np.inf, 0, 0, 0]
+
+
+@pytest.mark.parametrize("n,W,seed", [(1, 8, 0), (17, 16, 3), (999, 64, 7),
+                                      (2000, 128, 50), (1531, 8, 11)])
+def test_block_topk_property_grid(n, W, seed):
+    """A fixed sample of tests/test_kernels_topk.py's property grid, with
+    integer values (ties everywhere) beside Gaussian ones."""
+    rng = np.random.RandomState(seed)
+    for x in (rng.randn(n).astype(np.float32),
+              rng.randint(-3, 4, size=n).astype(np.float32)):
+        jb, tb = _topk_both(x, W)
+        assert np.array_equal(jb, tb)
+    y = block_topk(torch.tensor(x), block_w=W)
+    assert int((y != 0).sum()) <= -(-n // W)
+
+
+def test_block_topk_plain_version_and_checks():
+    x = torch.tensor([[1.0, -4.0, 4.0], [0.0, np.nan, 1.0]])
+    assert _bits(block_topk_ref(x)).tolist() == [
+        [0, _bits(torch.tensor(-4.0)).item(), 0], [0, 0, 0]]
+    with pytest.raises(ValueError, match="block_w=0"):
+        block_topk(x, block_w=0)
 
 
 # ---------------------------------------------------------------------------
