@@ -12,8 +12,16 @@ the ragged edges itself, so nothing is copied, and keys past T never
 enter the softmax (the JAX kernel lets zero-padded keys in when
 ``causal`` is off; ROADMAP D). ``block_q`` and ``block_k`` are the JAX
 signature's tile sizes: the result does not depend on them, the plain
-version has no tiles and the kernel picks its own from D (64 query rows,
-64 keys for D <= 64, 32 above).
+version has no tiles and the kernel picks its own. bfloat16 at D = 64
+and 128 runs on wgmma: 128 query rows per CTA (a 64-row warpgroup
+product each for two warpgroups) and key tiles of 128, loaded by TMA
+into as many shared-memory stages as fit beside Q (3 at D = 128, 4 at
+D = 64). The rest runs on mma.sync: 64 query rows per CTA (16 per warp,
+the height of an mma tile) and key tiles of 64 keys for bf16 at D = 32,
+32 keys for float32 and for D = 256, in a 2-stage cp.async ring. Both
+products run on the tensor cores with float32 accumulation; float32
+runs them in 3xTF32 (each operand split into two TF32 halves, three
+products), which keeps float32 accuracy.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ _GRID_LIMIT = 65535            # grid y (heads) and z (batch rows)
 def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
@@ -90,10 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: B={B}, H={H} over the grid's "
                          f"{_GRID_LIMIT}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    align = 4 * q.element_size()       # rows are read 4 elements at a time
-    if any(t.data_ptr() % align for t in (q, k, v)):
-        raise ValueError(f"flash_attention: q, k, v must be {align}-byte "
-                         f"aligned")
+    # rows are copied to shared memory in 16-byte pieces
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
     if S == 0 or B == 0 or H == 0:
         return out

@@ -19,8 +19,10 @@ from repro.kernels.flash_decode import (flash_decode,  # noqa: E402
 from repro_torch.kernels.flash_decode import COUNTER  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode as t_flash_decode)
+from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
+    _int32, split_keys)
 from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
-    flash_decode_ref as t_flash_decode_ref)
+    flash_decode_ref as t_flash_decode_ref, flash_decode_split_ref)
 
 TOL = 2e-5
 
@@ -143,3 +145,68 @@ def test_bfloat16_inputs_accumulate_in_float32():
     assert out.dtype == torch.bfloat16
     ref = t_flash_decode(*(tuple(t.float() for t in bf[:3]) + tq[3:]))
     assert (out.float() - ref).abs().max() < 3e-2
+
+
+def _split_case(ps):
+    """Rows that exercise the split partition: one key, one page, a run
+    ending inside a page, a dead row, a hole (a page mapped >= N inside
+    the live range), a row with no page at all, a full row."""
+    B, H, K, D, P = 7, 6, 2, 32, 4
+    n_pages = B * P + 2
+    pos = [0, ps - 1, ps + 5, 2 * ps + 7, 3 * ps + 1, P * ps - 1, P * ps - 1]
+    live = [1, 1, 1, 0, 1, 1, 1]
+    q, kp, vp, pm, pos, live = _case(ps * 7 + 3, B, H, K, D, n_pages, ps, P,
+                                     pos=pos, live=live)
+    pm[4, 1] = n_pages            # a hole: splits on it see no key
+    pm[5, :] = n_pages + 3        # no page at all
+    return q, kp, vp, pm, pos, live
+
+
+@pytest.mark.parametrize("ps", [16, 64, 128])
+@pytest.mark.parametrize("split", ["one", 16, 48, 64])
+def test_split_merge_matches_pallas_and_oracle(ps, split):
+    """The kernel's partition and merge (``flash_decode_split_ref``) for
+    one split and runs of 16, 48 and 64 keys: within 2e-5 of the Pallas
+    kernel and the oracle, splits past ``pos`` or holding only pages
+    mapped >= N merge as nothing, and rows with no key are exact zeros."""
+    case = _split_case(ps)
+    L = case[3].shape[1] * ps
+    got = flash_decode_split_ref(*map(torch.tensor, case),
+                                 split=L if split == "one" else split)
+    got = got.numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - _jax(case)).max() < TOL
+    assert np.abs(got - _torch(case)).max() < TOL
+    assert (got[3] == 0.0).all() and (got[5] == 0.0).all()
+
+
+def test_split_merge_bfloat16():
+    case = _split_case(16)
+    tq = tuple(torch.tensor(a) for a in case)
+    bf = (tq[0].bfloat16(), tq[1].bfloat16(), tq[2].bfloat16()) + tq[3:]
+    got = flash_decode_split_ref(*bf, split=32)
+    assert got.dtype == torch.bfloat16
+    ref = t_flash_decode_ref(*bf)
+    assert (got.float() - ref.float()).abs().max() < 3e-2
+
+
+@pytest.mark.parametrize("B,K,L,sms,want", [
+    (16, 4, 512, 132, 64),       # the served shapes: 8 splits, 512 CTAs
+    (4, 4, 4096, 132, 128),      # long context: 32 splits
+    (1, 1, 16, 132, 32),         # shorter than a tile: one split
+    (256, 8, 512, 132, 512),     # a full card at one split per row
+])
+def test_split_length_fills_the_card(B, K, L, sms, want):
+    R = split_keys(B, K, L, sms, tile=32)
+    assert R == want and R % 32 == 0
+    if R > 32:
+        assert B * K * -(-L // R) >= 2 * sms
+
+
+def test_int32_inputs_pass_through_and_others_are_converted():
+    pos = torch.arange(8, dtype=torch.int32)
+    assert _int32(pos) is pos
+    for x in (pos.long(), torch.arange(16, dtype=torch.int32)[::2]):
+        got = _int32(x)
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        assert torch.equal(got, x.to(torch.int32))
