@@ -57,9 +57,11 @@ result):
    PyTorch version: the JAX kernel tests' cases and the edge cases
    (S != T, fully masked rows, no keys at all, ragged non-causal keys,
    D = 256, sliding windows at full-width heads, the LM's heads in bf16;
-   bf16 also row by row; Q not a power of two, bf16, N = 64; NaN /
-   signed-zero / infinity / tie rows, W > 1024), then the full-width
-   outputs of phase 7; then each kernel's time per launch beside its plain
+   bf16 also row by row; Q not a power of two, bf16, N = 64, one chunk,
+   S = chunk + 1, hd 32 and 128, N 4 and 12, a call cut into windows of
+   chunks; NaN / signed-zero / infinity / tie rows, W > 1024), then the
+   full-width outputs of phase 7 (and the scan at one sequence of
+   ``mamba2-780m``); then each kernel's time per launch beside its plain
    version's, a library yardstick's (SDPA; ``torch.topk``; none for the
    scan) and the least time the card could take;
 9. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
@@ -120,8 +122,9 @@ HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 # bf16 through the tensor cores, dense: the least time for bf16 inputs
 BF16_FLOPS = 989e12
-# TF32 through the tensor cores, dense: flash_attention's float32 route is
-# 3xTF32, three TF32 products for each float32-accurate one
+# TF32 through the tensor cores, dense: the float32 routes of
+# flash_attention and ssd_scan are 3xTF32, three TF32 products for each
+# float32-accurate one
 TF32_FLOPS = 495e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # bf16 results are held row by row as well: ||kernel - plain|| / ||plain||
@@ -1079,7 +1082,12 @@ def ssd_tol(ref: torch.Tensor) -> float:
     return 5e-4 * max(1.0, float(ref.float().abs().max()) / 5.0)
 
 
-def ssd_check(name: str, args, chunk: int, out=None) -> float:
+def ssd_check(name: str, args, chunk: int, out=None, rows=False) -> float:
+    """The kernel against its plain version: max |kernel - plain| within
+    ``ssd_tol`` (f32) or 0.15 (bf16); with ``rows`` (bf16 outputs of |y|
+    >= 32, where one bf16 step is 0.25) each output row of hd values
+    within ||kernel - plain|| / ||plain|| <= ROW_TOL_BF16 instead. Returns
+    the measured error."""
     if out is None:
         out = ssd_ops.ssd_scan(*args, chunk=chunk)
     ref = ssd_scan_ref(*args, chunk=chunk)
@@ -1088,78 +1096,124 @@ def ssd_check(name: str, args, chunk: int, out=None) -> float:
         raise AssertionError(f"ssd_scan {name}: {out.shape}/{out.dtype} vs "
                              f"{ref.shape}/{ref.dtype}")
     err = float((out.float() - ref.float()).abs().max())
+    ymax = float(ref.float().abs().max())
+    if rows:
+        rel = row_rel_err(out, ref)
+        if not rel <= ROW_TOL_BF16:
+            raise AssertionError(f"ssd_scan {name}: row error ||kernel - "
+                                 f"plain|| / ||plain|| = {rel} > "
+                                 f"{ROW_TOL_BF16}")
+        print(f"[kernel] ssd_scan {name}: row error {rel:.3e} (bound "
+              f"{ROW_TOL_BF16:.4g}), max |kernel - plain| = {err:.3e}, max "
+              f"|y| {ymax:.1f}")
+        return rel
     tol = 0.15 if out.dtype == torch.bfloat16 else ssd_tol(ref)
     if not np.isfinite(err) or err > tol:
         raise AssertionError(f"ssd_scan {name}: max |kernel - plain| = "
                              f"{err} > {tol}")
     print(f"[kernel] ssd_scan {name}: max |kernel - plain| = {err:.3e} "
-          f"(bound {tol:.1e}, max |y| {float(ref.float().abs().max()):.1f})")
+          f"(bound {tol:.1e}, max |y| {ymax:.1f})")
     return err
 
 
 def ssd_bound(B, S, nh, hd, N, Q) -> dict:
     """Least time: x, dt, A, Bm, Cm read and y written once, or the
     multiply-adds x 2 (C B^T once per (b, chunk) and causal half; G x
-    causal half; the state's read-out and update) over the f32 peak."""
+    causal half; the state's read-out and update) over the peak of the
+    kernel's route, 3xTF32 on the tensor cores: three TF32 products per
+    float32 one at 495 TFLOP/s (``bound_ms``); beside it the same work on
+    the CUDA cores' float32 67 TFLOP/s (``bound_f32_ms``)."""
     nc = -(-S // Q)
     tri = Q * (Q + 1) // 2
     flops = 2 * (B * nc * N * tri
                  + B * nh * nc * (hd * tri + 2 * Q * N * hd))
     nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * N)
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_ms": max(t_bytes, flops / F32_FLOPS * 1e3)}
 
 
-def phase_ssd(card: str, main: dict) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    err = 0.0
-    # the JAX kernel tests' cases (tests/test_kernels_ssd.py)
-    for B, S, nh, hd, N, chunk in ((1, 32, 1, 32, 16, 16),
-                                   (2, 64, 4, 32, 64, 16),
-                                   (1, 128, 2, 64, 128, 32),
-                                   (2, 50, 3, 32, 64, 16),
-                                   (1, 256, 8, 64, 128, 128)):
-        args = ssd_inputs(gen, B=B, S=S, nh=nh, hd=hd, N=N)
-        err = max(err, ssd_check(f"case {(B, S, nh, hd, N, chunk)}", args,
-                                 chunk))
-    # Q = 80 (S < chunk, not a power of two), a ragged tail, N = 64
-    # (zamba2-7b's d_state, 112 heads of 64), and bf16 inputs
-    err = max(err, ssd_check("Q=80", ssd_inputs(gen, B=2, S=80, nh=2, hd=32,
-                                                 N=32), 128))
-    err = max(err, ssd_check("S=300 chunk 128", ssd_inputs(
-        gen, B=2, S=300, nh=4, hd=64, N=128), 128))
-    err = max(err, ssd_check("zamba2-7b N=64", ssd_inputs(
-        gen, B=1, S=1024, nh=112, hd=64, N=64), 128))
-    bf16 = ssd_check("bf16", ssd_inputs(gen, B=1, S=64, nh=2, hd=32, N=32,
-                                        dtype=torch.bfloat16), 16)
-    # the main path's full-width output
-    args, out = main["ssd_scan"]
-    chunk = SSD_SHAPE["chunk"]
-    err = max(err, ssd_check("mamba2-780m B=4 S=2048 (main path)", args,
-                             chunk, out=out))
-
+def time_ssd(name: str, args, chunk: int, card: str, iters: int,
+             plain_iters: int) -> dict:
     def kernel():
         ssd_ops.ssd_scan(*args, chunk=chunk)
 
     def plain():
         ssd_scan_ref(*args, chunk=chunk)
 
-    ms = cuda_ms(kernel, 10)
-    plain_ms = cuda_ms(plain, 3, warmup=1)
-    ms2 = cuda_ms(kernel, 10)
-    sh = SSD_SHAPE
+    ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+    ms2 = cuda_ms(kernel, iters)
+    B, S, nh, hd = args[0].shape
+    N = args[3].shape[-1]
+    ctas = ssd_ops.launch_ctas(B, S, nh, hd, N, chunk,
+                               args[0].device.index)
     res = {"ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
-           "library_ms": None,
-           **ssd_bound(sh["B"], sh["S"], sh["nh"], sh["hd"], sh["N"], chunk)}
-    print(f"[kernel] ssd_scan timing, mamba2-780m (B {sh['B']}, S {sh['S']}, "
-          f"nh {sh['nh']}, hd {sh['hd']}, N {sh['N']}, chunk {chunk}, f32): "
-          f"kernel {res['ms']:.3f} ms/launch ({ms:.3f}, {ms2:.3f}), plain "
-          f"{plain_ms:.3f} ms, no library call, bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']}, {res['flops'] / 1e9:.2f} GFLOP, "
-          f"{res['bytes'] / 1e6:.1f} MB) | {card}")
-    return {"max_abs_err": err, "max_abs_err_bf16": bf16, **res}
+           "library_ms": None, "ctas": ctas,
+           **ssd_bound(B, S, nh, hd, N, min(chunk, S))}
+    print(f"[kernel] ssd_scan timing, {name} (B {B}, S {S}, nh {nh}, hd {hd}, "
+          f"N {N}, chunk {chunk}, f32): kernel {res['ms']:.3f} ms/launch "
+          f"({ms:.3f}, {ms2:.3f}), plain {plain_ms:.3f} ms, no library call, "
+          f"bound {res['bound_ms']:.4f} ms as 3xTF32 ({res['bound_by']}), "
+          f"{res['bound_f32_ms']:.4f} ms on the f32 CUDA cores "
+          f"({res['flops'] / 1e9:.2f} GFLOP, {res['bytes'] / 1e6:.1f} MB); "
+          f"CTAs: chunk states {ctas['chunk_state']}, state pass "
+          f"{ctas['state_pass']}, chunk scan {ctas['chunk_scan']} | {card}")
+    return res
+
+
+def phase_ssd(card: str, main: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err = 0.0
+
+    def case(name, chunk, **shape):
+        nonlocal err
+        err = max(err, ssd_check(name, ssd_inputs(gen, **shape), chunk))
+
+    # the JAX kernel tests' cases (tests/test_kernels_ssd.py)
+    for B, S, nh, hd, N, chunk in ((1, 32, 1, 32, 16, 16),
+                                   (2, 64, 4, 32, 64, 16),
+                                   (1, 128, 2, 64, 128, 32),
+                                   (2, 50, 3, 32, 64, 16),
+                                   (1, 256, 8, 64, 128, 128)):
+        case(f"case {(B, S, nh, hd, N, chunk)}", chunk, B=B, S=S, nh=nh,
+             hd=hd, N=N)
+    # Q = 80 (S < chunk, not a power of two), a ragged tail, N = 64
+    # (zamba2-7b's d_state, 112 heads of 64), and bf16 inputs
+    case("Q=80", 128, B=2, S=80, nh=2, hd=32, N=32)
+    case("S=300 chunk 128", 128, B=2, S=300, nh=4, hd=64, N=128)
+    case("zamba2-7b N=64", 128, B=1, S=1024, nh=112, hd=64, N=64)
+    bf16 = ssd_check("bf16", ssd_inputs(gen, B=1, S=64, nh=2, hd=32, N=32,
+                                        dtype=torch.bfloat16), 16)
+    # the seams of the three-kernel design: one chunk (no state pass), a
+    # second chunk of one step, hd 32 and 128 (the scan single-buffered),
+    # N 4 and 12 (padded to k-steps of 8), and a call cut into windows of
+    # chunks (chunk 16 over 8192 steps: 512 chunks, 512 MiB of workspace
+    # per 84)
+    case("B=1 one chunk, mamba2-780m widths", 128, B=1, S=128, nh=48, hd=64,
+         N=128)
+    case("S=chunk+1", 128, B=2, S=129, nh=4, hd=64, N=128)
+    case("hd=32", 128, B=2, S=256, nh=4, hd=32, N=128)
+    case("hd=128", 128, B=1, S=384, nh=4, hd=128, N=128)
+    case("N=4", 64, B=1, S=200, nh=3, hd=64, N=4)
+    case("N=12", 48, B=2, S=300, nh=5, hd=32, N=12)
+    case("windows: chunk 16, S 8192", 16, B=4, S=8192, nh=48, hd=64, N=128)
+    bf16_rows = ssd_check("bf16 mamba2-780m widths", ssd_inputs(
+        gen, B=1, S=512, nh=48, hd=64, N=128, dtype=torch.bfloat16), 128,
+        rows=True)
+    # the main path's full-width output, then one sequence at its widths
+    args, out = main["ssd_scan"]
+    chunk = SSD_SHAPE["chunk"]
+    err = max(err, ssd_check("mamba2-780m B=4 S=2048 (main path)", args,
+                             chunk, out=out))
+    b1 = ssd_inputs(gen, **dict(SSD_SHAPE, B=1))
+    err = max(err, ssd_check("mamba2-780m B=1 S=2048", b1, chunk))
+    res = time_ssd("mamba2-780m", args, chunk, card, 10, 3)
+    res_b1 = time_ssd("mamba2-780m one sequence", b1, chunk, card, 20, 3)
+    return {"max_abs_err": err, "max_abs_err_bf16": bf16,
+            "max_row_rel_err_bf16": bf16_rows, **res, "b1": res_b1}
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1351,10 +1405,18 @@ def main() -> int:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:25",
+         "design": "chunk states (wgmma) + C B^T once per (b, chunk) "
+                   "(mma.sync), state pass, chunk scan (wgmma); 3xTF32",
          "launches": launches["ssd_scan"], "max_abs_err": ssd["max_abs_err"],
+         "max_abs_err_bf16": ssd["max_abs_err_bf16"],
+         "max_row_rel_err_bf16": ssd["max_row_rel_err_bf16"],
+         "row_rel_tol_bf16": ROW_TOL_BF16,
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
-         "library_ms": ssd["library_ms"]},
+         "bound_f32_ms": ssd["bound_f32_ms"],
+         "library_ms": ssd["library_ms"], "ms_b1": ssd["b1"]["ms"],
+         "plain_ms_b1": ssd["b1"]["plain_ms"],
+         "bound_ms_b1": ssd["b1"]["bound_ms"]},
     ]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

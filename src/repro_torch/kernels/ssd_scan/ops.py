@@ -6,7 +6,10 @@ dt = 0 steps as the JAX wrapper pads it); CUDA tensors launch the
 hand-written ``sm_90a`` kernel (``ssd_scan.cu``), built with nvcc at
 first use, which reads the ragged tail in place. A build or launch
 failure raises; nothing falls back to the plain version on the card.
-``COUNTER`` counts kernel launches (and only those).
+One call is three kernels in stream order (chunk states and C B^T, the
+state pass, the chunk scan); their intermediates live in one float32
+workspace from PyTorch's caching allocator. ``COUNTER`` counts calls that
+launched them (and only those).
 """
 from __future__ import annotations
 
@@ -24,13 +27,18 @@ COUNTER = launch_counter("ssd_scan")
 HEAD_DIMS = (32, 64, 128)
 MAX_CHUNK = 128
 _SMEM_LIMIT = 232_448          # a Hopper block's dynamic shared memory
-_GRID_LIMIT = 65535            # grid y (batch rows)
+_GRID_LIMIT = 65535            # grid z (batch rows)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_workspace_floats.argtypes = [ctypes.c_int] * 6
+    lib.ssd_scan_workspace_floats.restype = ctypes.c_longlong
+    lib.ssd_scan_ctas.argtypes = [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.ssd_scan_ctas.restype = ctypes.c_int
     lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
 
@@ -38,6 +46,18 @@ def _declare(lib: ctypes.CDLL) -> None:
 def library() -> BuiltLibrary:
     """Build (first call only) and load the kernel's shared library."""
     return build("ssd_scan", [SOURCE], configure=_declare)
+
+
+def launch_ctas(B: int, S: int, nh: int, hd: int, N: int, chunk: int,
+                device: int = 0) -> dict:
+    """CTAs of the three kernels in a call's first window (chunk states
+    with C B^T, state pass, chunk scan) and the number of windows, as the
+    launch plans them on card ``device``."""
+    ctas = (ctypes.c_longlong * 3)()
+    windows = library().lib.ssd_scan_ctas(B, S, nh, hd, N, min(chunk, S),
+                                          device, ctas)
+    return {"chunk_state": ctas[0], "state_pass": ctas[1],
+            "chunk_scan": ctas[2], "windows": windows}
 
 
 def _check(x, dt, A, Bm, Cm, chunk) -> None:
@@ -97,12 +117,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), B, S, nh, hd, N, Q,
-            int(x.dtype == torch.bfloat16), x.device.index, stream)
+    ws = torch.empty(lib.ssd_scan_workspace_floats(B, S, nh, hd, N, Q),
+                     dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), ws.data_ptr(), B, S, nh, hd, N, Q,
+        int(x.dtype == torch.bfloat16), x.device.index, stream)
     check_launch("ssd_scan", code)
     COUNTER.count += 1
     return y

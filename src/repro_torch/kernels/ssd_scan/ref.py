@@ -16,9 +16,13 @@ tail padded with dt = 0 steps (no decay, no input) and y cut back to S.
 It is the CPU path of ``ops.ssd_scan`` and the comparison
 ``chip_smoke.py`` holds the CUDA kernel against. ``ssd_ref`` is the
 sequential recurrence, a copy of ``repro.kernels.ssd_scan.ref.ssd_ref``:
-the oracle both are tested against.
+the oracle both are tested against. ``ssd_scan_split_ref`` is the CUDA
+kernel's partition (chunk states from zero, the state pass, then the scan
+with C B^T shared by all heads), for the tests only.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -93,3 +97,52 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
     return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=Q)[:, :S]
+
+
+def ssd_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
+                       mm: Callable = torch.matmul) -> torch.Tensor:
+    """The CUDA kernel's partition in plain PyTorch (for the tests): per
+    (b, chunk, head) the chunk state from zero, S_c = (x w)^T B with w_j =
+    dt_j exp(cum_Q - cum_j); the state pass h_c = h_{c-1} exp(cum_Q) +
+    S_{c-1} over chunks; then per (b, chunk) C B^T once for all heads
+    and y = G x + exp(cum_i) (C h_c^T), G = C B^T * exp(min(cum_i -
+    cum_j, 0)) * dt_j for j <= i. The four products go through ``mm``
+    (the tests pass an emulation of the kernel's 3xTF32). Chunks of
+    ``min(chunk, S)`` steps, the tail read as dt = 0 steps."""
+    Bsz, S, nh, hd = x.shape
+    if S == 0:
+        return x.clone()
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    xc = xf.reshape(Bsz, nc, Q, nh, hd).permute(0, 1, 3, 2, 4)  # b c h Q hd
+    dtc = dtf.reshape(Bsz, nc, Q, nh).permute(0, 1, 3, 2)       # b c h Q
+    cum = torch.cumsum(dtc * A.float()[None, None, :, None], dim=-1)
+    last = cum[..., -1:]                                        # b c h 1
+    # (a) chunk states from zero: (b, c, h, hd, N)
+    w = dtc * torch.exp(last - cum)
+    Sc = mm((xc * w[..., None]).transpose(-1, -2), Bc[:, :, None])
+    # (b) the state pass: the state entering each chunk
+    h = torch.zeros((Bsz, nh, hd, N), dtype=torch.float32, device=x.device)
+    hin = []
+    for c in range(nc):
+        hin.append(h)
+        h = h * torch.exp(last[:, c])[..., None] + Sc[:, c]
+    hin = torch.stack(hin, dim=1)
+    # (c) the scan, C B^T once per (b, chunk)
+    CB = mm(Cc, Bc.transpose(-1, -2))                           # b c Q Q
+    seg = torch.clamp(cum[..., :, None] - cum[..., None, :], max=0.0)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    G = torch.where(causal, CB[:, :, None] * torch.exp(seg)
+                    * dtc[..., None, :], torch.zeros_like(seg))
+    y = torch.exp(cum)[..., None] * mm(Cc[:, :, None],
+                                       hin.transpose(-1, -2)) + mm(G, xc)
+    y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * Q, nh, hd)[:, :S]
+    return y.to(x.dtype)

@@ -17,7 +17,12 @@ float64 cumsum rounded to float32 gives the same, so the two float32
 versions are held to each other there with the depth-scaled 5e-4 too.
 
 The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it against
-this plain version there, on the same cases and at full width.
+this plain version there, on the same cases and at full width. What can
+be checked here is its arithmetic: ``ssd_scan_split_ref`` is the
+kernel's partition (chunk states from zero, the state pass, C B^T shared
+by all heads), held against the Pallas kernel and the oracle alone and
+with its four products emulated as the kernel's 3xTF32; plain TF32 is
+shown to miss the tolerance ``chip_smoke.py`` applies.
 """
 import numpy as np
 import pytest
@@ -30,7 +35,8 @@ from repro.kernels.ssd_scan import ssd_ref as j_ssd_ref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan  # noqa: E402
 from repro.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import (COUNTER, ssd_chunked_ref,  # noqa: E402
-                                          ssd_ref, ssd_scan)
+                                          ssd_ref, ssd_scan, ssd_scan_ref,
+                                          ssd_scan_split_ref)
 
 # B, S, nh, hd, N, chunk: the cases of tests/test_kernels_ssd.py
 CASES = [
@@ -151,3 +157,100 @@ def test_shapes_are_checked():
         ssd_scan(x, dt[:, :4], A, Bm, Cm)
     with pytest.raises(ValueError, match="chunk=0"):
         ssd_scan(x, dt, A, Bm, Cm, chunk=0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's partition and numeric route, in plain PyTorch: chunk
+# states from zero, the state pass, the scan with C B^T shared by all
+# heads, and the four products as 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+RAGGED = [(80, 128), (50, 16), (17, 16), (100, 48), (129, 128)]
+
+
+def _split(args, chunk, mm=torch.matmul):
+    t = [torch.tensor(a) for a in args]
+    return ssd_scan_split_ref(*t, chunk=chunk, mm=mm).numpy()
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", CASES)
+def test_split_ref_matches_pallas_kernel_and_oracle(B, S, nh, hd, N, chunk):
+    args = _mk(0, B, S, nh, hd, N)
+    got = _split(args, chunk)
+    tol = 1e-4 if S <= 128 else 5e-4
+    assert _err(got, _jax_kernel(args, chunk=chunk)) < tol
+    assert _err(got, _oracle(args)) < 5e-4
+
+
+@pytest.mark.parametrize("S,chunk", RAGGED)
+def test_split_ref_ragged_chunks(S, chunk):
+    args = _mk(S, 2, S, 2, 32, 32)
+    got = _split(args, chunk)
+    tol = 1e-4 if S <= 128 else 5e-4
+    assert _err(got, _jax_kernel(args, chunk=chunk)) < tol
+    assert _err(got, _oracle(args)) < tol
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half an ulp of TF32 to the
+    magnitude bits, then clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's 3xTF32: big = tf32(x), small = tf32(x - big),
+    the small products first; each TF32 product is exact in float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _mm_tf32(a, b):
+    """a @ b with both operands cut to TF32 once (plain TF32)."""
+    return _tf32(a) @ _tf32(b)
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", CASES)
+def test_3xtf32_route_within_f32_tolerance(B, S, nh, hd, N, chunk):
+    """The kernel's arithmetic (its partition, all four products in
+    3xTF32) stays within the JAX tests' tolerances of the Pallas kernel
+    and of the sequential oracle."""
+    args = _mk(0, B, S, nh, hd, N)
+    got = _split(args, chunk, mm=_mm_3xtf32)
+    tol = 1e-4 if S <= 128 else 5e-4
+    assert _err(got, _jax_kernel(args, chunk=chunk)) < tol
+    assert _err(got, _oracle(args)) < 5e-4
+
+
+def _scaled_tol(ref):
+    """``chip_smoke.py``'s tolerance: 5e-4 x max(1, max|y| / 5)."""
+    return 5e-4 * max(1.0, float(np.abs(ref).max()) / 5.0)
+
+
+def test_plain_tf32_would_miss_the_scaled_tolerance():
+    """At one sequence of 1024 steps (4 heads of 64, N 128, chunk 128) one
+    TF32 product per float32 product misses the tolerance ``chip_smoke.py``
+    holds the kernel to; 3xTF32 keeps well inside it: the reason for the
+    route."""
+    args = _mk(7, 1, 1024, 4, 64, 128)
+    ref = ssd_scan_ref(*(torch.tensor(a) for a in args), chunk=128).numpy()
+    tol = _scaled_tol(ref)
+    assert _err(_split(args, 128, mm=_mm_tf32), ref) > tol
+    assert _err(_split(args, 128, mm=_mm_3xtf32), ref) < tol / 10
+
+
+def test_mamba2_780m_head_count():
+    """``mamba2-780m``'s 48 heads of 64 and N 128 at chunk 128, one
+    sequence of 256 steps: the plain version, the kernel's partition and
+    its 3xTF32 route within 5e-4 of the oracle, as the Pallas kernel is
+    (4.1e-4 here: the float32 cumsum's rounding over 48 x 16 384 outputs
+    of up to |y| = 61); so within 1e-3 of the Pallas kernel."""
+    args = _mk(11, 1, 256, 48, 64, 128)
+    want = _jax_kernel(args, chunk=128)
+    oracle = _oracle(args)
+    assert _err(want, oracle) < 5e-4
+    for got in (_port(args, chunk=128), _split(args, 128),
+                _split(args, 128, mm=_mm_3xtf32)):
+        assert _err(got, oracle) < 5e-4
+        assert _err(got, want) < 1e-3
