@@ -21,7 +21,8 @@ result):
    compressor BIT-EXACT
    (values, indices, residual) on the JAX kernel tests' cases batched
    over 3 workers, rows with NaN / all zeros / magnitude ties, and the
-   elastic-SGD demo's shape; then each kernel's time per launch (CUDA
+   elastic-SGD demo's shape, and the CUDA route refusing block_w 2048
+   (the plain version takes it); then each kernel's time per launch (CUDA
    events; flash-decode's from CUDA graphs, its eager calls and the
    wrapper's host time per call beside it)
    beside its plain version's, a library yardstick's and the least time
@@ -46,25 +47,39 @@ result):
    workers, block_w 128, 3 reduce steps; the first step's kernel output
    bit-exact against the plain version on the same card tensors; kernel,
    plain and ``torch.topk`` times beside the bandwidth bound;
-7. kernel API (slice 3) — the port's public kernel API
+7. train LM (slice 6) — ``python -m repro_torch.launch.train --simulate``'s
+   path: ``build_training``'s fleet trains ``mlitb-lm-100m`` at full width
+   (random weights from seed 0, AdaGrad, the fused top-k reduce) for 8
+   iterations with CUDA-event timers around each worker's forward and
+   backward, the reduce step, its stable sort, segment-sum and AdaGrad:
+   every loss finite and the last below the first; then at
+   ``mlitb-lm-100m.reduced()`` on the card and on the CPU in this
+   process: the plain run (events, worker counts, vectors and wire bytes
+   equal, loss within 1e-3 relative at every iteration), a chaos run
+   (a NaN and a garbage fault profile on one worker, plain SGD,
+   guardrails on: per-iteration quarantines and rollbacks equal) and an
+   adaptive-keep run (blocktopk at block_w 128, three uplinks, the
+   per-worker keep controller: per-worker keeps and wire bytes equal,
+   ``fused_compress`` launched once per reduce step on the card);
+8. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
    ``mlitb-lm-100m``'s prefill (16 slots x 512 tokens, f32) and
    ``qwen3-4b``'s heads at 4096 tokens (bf16), ``ssd_scan`` at
    ``mamba2-780m``'s widths (B 4, S 2048, f32), ``block_topk`` over
    ``mlitb-lm-100m``'s flat buffer (f32 and bf16) and the conv net's;
-8. flash_attention, ssd_scan, block_topk — each kernel against its plain
+9. flash_attention, ssd_scan, block_topk — each kernel against its plain
    PyTorch version: the JAX kernel tests' cases and the edge cases
    (S != T, fully masked rows, no keys at all, ragged non-causal keys,
    D = 256, sliding windows at full-width heads, the LM's heads in bf16;
    bf16 also row by row; Q not a power of two, bf16, N = 64, one chunk,
    S = chunk + 1, hd 32 and 128, N 4 and 12, a call cut into windows of
    chunks; NaN / signed-zero / infinity / tie rows, W > 1024), then the
-   full-width outputs of phase 7 (and the scan at one sequence of
+   full-width outputs of phase 8 (and the scan at one sequence of
    ``mamba2-780m``); then each kernel's time per launch beside its plain
    version's, a library yardstick's (SDPA; ``torch.topk``; none for the
    scan) and the least time the card could take;
-9. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
+10. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. Imports ``torch``,
@@ -72,7 +87,10 @@ Details go to ``chiprun_out/chip_smoke.json``. Imports ``torch``,
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -88,8 +106,14 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (GradientCompressor, MasterReducer,  # noqa: E402
-                              flat_spec)
+from repro_torch.core import (AdaptiveFracController,  # noqa: E402
+                              AdaptiveScheduler, GradientCompressor,
+                              GuardrailConfig, JoinEvent, MasterEventLoop,
+                              MasterReducer, TrainingConfig,
+                              UploadDataEvent, flat_spec)
+from repro_torch.core import reducer as reducer_mod  # noqa: E402
+from repro_torch.core import simulation as sim  # noqa: E402
+from repro_torch.core.config import DeadlineConfig  # noqa: E402
 import repro_torch.kernels as api  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -102,8 +126,10 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
     block_topk_flat_ref, fused_block_topk_batched_ref)
 from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
+from repro_torch.launch.train import run_lm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.optim import adagrad  # noqa: E402
+import repro_torch.optim as optim  # noqa: E402
+from repro_torch.optim import adagrad, sgd  # noqa: E402
 from repro_torch.models.attention import _pow2_kv_block  # noqa: E402
 from repro_torch.serving import (PagingConfig, ServingConfig,  # noqa: E402
                                  ServingEngine, generate_requests)
@@ -666,6 +692,21 @@ def phase_fused_kernel(card: str) -> dict:
           f"us ({t['bound_by']}, {t['bytes'] / 1e6:.2f} MB); called eagerly "
           f"{t['ms_eager'] * 1e3:.1f} / {t['plain_ms_eager'] * 1e3:.1f} / "
           f"{t['library_ms_eager'] * 1e3:.1f} us | {card}")
+    # the CUDA kernel's widest block is MAX_BLOCK_W (1024); wider blocks
+    # (the CPU's plain version takes them) must be refused, not launched
+    g = torch.ones(2, 5000, device="cuda")
+    before = tk_ops.COUNTER.count
+    try:
+        tk_ops.fused_block_topk_batched(g, g, k=4, block_w=2048)
+    except ValueError as e:
+        if "block_w=2048" not in str(e) or "CUDA kernel" not in str(e):
+            raise
+    else:
+        raise AssertionError("fused_compress took block_w=2048 on the card")
+    if tk_ops.COUNTER.count != before:
+        raise AssertionError("the refused block_w=2048 call launched")
+    print("[kernel] fused_compress block_w=2048 on the card: refused "
+          "(MAX_BLOCK_W 1024)")
     return {"max_abs_err": err, "demo": t}
 
 
@@ -771,7 +812,10 @@ def phase_train(card: str, kernel_ms: float) -> dict:
 def phase_reduce_lm(card: str) -> dict:
     cfg = get_config(ARCH)
     params = tf.init_params(cfg, seed=0, device="cuda")
-    red = MasterReducer(params, adagrad(lr=0.02), GradientCompressor(
+    timer = StageTimer()
+    with stage_timers(timer):
+        opt = optim.adagrad(lr=0.02)            # its updates are timed
+    red = MasterReducer(params, opt, GradientCompressor(
         "blocktopk", frac=1 / 128, block_w=128))
     del params
     spec = flat_spec(red.params)
@@ -797,7 +841,8 @@ def phase_reduce_lm(card: str) -> dict:
         if s:
             msgs = messages()
         t0 = time.perf_counter()
-        red.reduce_and_step(msgs)
+        with stage_timers(timer):
+            red.reduce_and_step(msgs)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         if s == 0:
@@ -822,17 +867,300 @@ def phase_reduce_lm(card: str) -> dict:
     Rs = torch.stack([red._residuals[w] for w in sorted(msgs)])
     del msgs
     t = time_fused(G, Rs, 1, 128, iters=20, plain_iters=2, graph=False)
+    stages = timer.ms()
     res = {"n": n, "launches": launches, "max_abs_err": err,
            "reduce_step_ms": [1e3 * x for x in step_s],
-           "peak_mem_bytes": peak, **t}
+           "stage_ms": stages, "peak_mem_bytes": peak, **t}
     print(f"[reduce] {ARCH} flat buffer n={n}, 4 workers, W=128, k=1: 3 "
-          f"reduce steps {', '.join(f'{1e3 * x:.2f}' for x in step_s)} ms; "
+          f"reduce steps {', '.join(f'{1e3 * x:.2f}' for x in step_s)} ms "
+          f"(in them: compressor "
+          f"{', '.join(f'{x:.2f}' for x in stages['compress'])}, "
+          f"segment-sum "
+          f"{', '.join(f'{x:.2f}' for x in stages['segment-sum'])}, "
+          f"adagrad {', '.join(f'{x:.2f}' for x in stages['adagrad'])}); "
           f"fused_compress launches {launches}; kernel {t['ms']:.3f} ms/"
           f"launch ({t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f}), plain "
           f"{t['plain_ms']:.3f} ms, torch.topk {t['library_ms']:.3f} ms, "
           f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}, "
           f"{t['bytes'] / 1e9:.3f} GB); peak mem {peak / 2**30:.2f} GiB "
           f"| {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the simulated fleet trains mlitb-lm-100m
+# ---------------------------------------------------------------------------
+LM_STEPS = 10                # full-width iterations
+# AdaGrad's first step moves every sent entry by lr: build_training's 0.1
+# diverges the full-width LM (weights of std 0.02-0.04); 0.003 trains it
+LM_LR = 0.003
+# the same lr for the card-vs-CPU run at the reduced size: at 0.1 a top-k
+# pick that rounding flips moves its entry by the whole step, and the
+# two losses parted by 1.26e-3 relative by iteration 8
+LM_SMALL_STEPS = 8           # each reduced-size run, card and CPU
+# the adaptive-keep fleet's uplinks (bytes/s): with T 0.5 and comm_frac
+# 0.5 they ask for about 8, 2 and 1 keeps per 128-entry block of the
+# reduced LM's buffer
+KEEP_UPLINKS = (8e5, 2e5, 5e4)
+
+
+class StageTimer:
+    """CUDA-event ranges by stage name, recorded on the current stream
+    (no sync while the run goes on)."""
+
+    def __init__(self):
+        self.events = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        yield
+        ev[1].record()
+        self.events.setdefault(name, []).append(ev)
+
+    def ms(self) -> dict:
+        return {k: [s.elapsed_time(e) for s, e in v]
+                for k, v in self.events.items()}
+
+
+@contextlib.contextmanager
+def stage_timers(timer: StageTimer):
+    """Times, for the runs inside the block: each worker's map step
+    (``SimulatedCluster.compute``: the batch gather, forward, backward),
+    the reducer's compressor kernel (blocktopk) or stable sort (topk),
+    its segment-sum and every AdaGrad update of optimizers made by
+    ``optim.adagrad``."""
+    compute = sim.SimulatedCluster.compute
+    compress = reducer_mod.fused_block_topk_batched
+    sort = reducer_mod.stable_topk_indices
+    segsum = reducer_mod._segment_sum
+    make_adagrad = optim.adagrad
+
+    def timed(name, fn):
+        def inner(*a, **kw):
+            with timer(name):
+                return fn(*a, **kw)
+        return inner
+
+    def timed_adagrad(*a, **kw):
+        opt = make_adagrad(*a, **kw)
+        return optim.Optimizer(opt.name, opt.init,
+                               timed("adagrad", opt.update))
+
+    sim.SimulatedCluster.compute = timed("worker", compute)
+    reducer_mod.fused_block_topk_batched = timed("compress", compress)
+    reducer_mod.stable_topk_indices = timed("sort", sort)
+    reducer_mod._segment_sum = timed("segment-sum", segsum)
+    optim.adagrad = timed_adagrad
+    try:
+        yield
+    finally:
+        sim.SimulatedCluster.compute = compute
+        reducer_mod.fused_block_topk_batched = compress
+        reducer_mod.stable_topk_indices = sort
+        reducer_mod._segment_sum = segsum
+        optim.adagrad = make_adagrad
+
+
+def same_lm_logs(gpu, cpu, what: str, loss_rtol=1e-3) -> float:
+    """Card against CPU, iteration by iteration: events, workers, vectors,
+    wire bytes (per worker too), quarantines and rollbacks equal; losses
+    finite alike and within ``loss_rtol`` relative (None: not compared).
+    Returns the largest relative loss difference."""
+    rel = 0.0
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"{what}: {len(gpu)} vs {len(cpu)} iterations")
+    for a, b in zip(gpu, cpu):
+        ka = (a.events, a.n_workers, a.vectors, a.wire_bytes,
+              a.per_worker_wire_bytes, a.n_quarantined, a.rolled_back)
+        kb = (b.events, b.n_workers, b.vectors, b.wire_bytes,
+              b.per_worker_wire_bytes, b.n_quarantined, b.rolled_back)
+        if ka != kb:
+            raise AssertionError(f"{what} iteration {a.step}: card {ka} vs "
+                                 f"cpu {kb}")
+        if math.isfinite(a.loss) != math.isfinite(b.loss):
+            raise AssertionError(f"{what} iteration {a.step}: loss "
+                                 f"{a.loss} vs {b.loss}")
+        if math.isfinite(b.loss):
+            r = abs(a.loss - b.loss) / abs(b.loss)
+            rel = max(rel, r)
+            if loss_rtol is not None and r > loss_rtol:
+                raise AssertionError(f"{what} iteration {a.step}: loss "
+                                     f"{a.loss} vs {b.loss} ({r:.2e} rel)")
+    return rel
+
+
+def chaos_run(cfg, device):
+    """``build_training``'s fleet with a NaN and a garbage fault profile
+    on w1, plain SGD (AdaGrad's normalised step would absorb the
+    garbage), guardrails on."""
+    training = TrainingConfig(T=0.5, deadline=DeadlineConfig(quantile=0.5),
+                              guardrails=GuardrailConfig())
+    return run_lm(cfg, steps=LM_SMALL_STEPS, seed=0, device=device,
+                  training=training, optimizer=sgd(lr=0.05),
+                  fault_profiles={"w1": sim.FaultProfile(nan_p=0.25,
+                                                         garbage_p=0.25)})
+
+
+def keep_run(cfg, device):
+    """The reduced LM on three uplinks with the per-worker keep
+    controller and the blocktopk channel (block_w 128): every reduce is
+    one ``fused_compress`` launch over the workers' ragged keeps.
+    Returns (logs, reduce steps)."""
+    (X, y), grad_fn = sim.make_lm_problem(cfg, seed=0, device=device)
+    red = MasterReducer(tf.init_params(cfg, seed=0, device=device),
+                        adagrad(lr=0.1), compressor=GradientCompressor(
+                            "blocktopk", frac=1 / 8, block_w=128))
+    cluster = sim.SimulatedCluster(grad_fn=grad_fn, data=(X, y),
+                                   mode="real", seed=0, device=device)
+    loop = MasterEventLoop(
+        reducer=red, cluster=cluster,
+        frac_controller=AdaptiveFracController(
+            comm_frac=0.5, frac_min=1 / 2048, frac_max=0.12),
+        scheduler=AdaptiveScheduler(T=0.5, prior_power=300.0,
+                                    prior_bandwidth=6e4),
+        training=TrainingConfig(T=0.5))
+    loop.submit(UploadDataEvent(range(len(X))))
+    for i, bw in enumerate(KEEP_UPLINKS):
+        cluster.add_worker(f"w{i}", sim.DeviceProfile(
+            f"up{i}", 300.0, 0.010, 0.20, uplink_bps=bw))
+        loop.submit(JoinEvent(f"w{i}", capacity=len(X)))
+    return loop.run(LM_SMALL_STEPS), red.step
+
+
+def phase_train_lm(card: str) -> dict:
+    cfg = get_config(ARCH)
+    # -- full width: the launcher's run_lm, stages timed ------------------
+    timer = StageTimer()
+    runtime.reset_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with stage_timers(timer):
+        run = run_lm(cfg, steps=LM_STEPS, seed=0, device="cuda", lr=LM_LR)
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in runtime.COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    logs = run.logs
+    losses = [lg.loss for lg in logs]
+    # an iteration whose every reply missed the deadline reduces nothing
+    # and has no loss (NaN, as in the JAX package): the first ones, while
+    # the upload EWMA learns that an 80 MB message takes 6.4 s
+    reduced = [lg for lg in logs if lg.n_workers > 0]
+    for lg in logs:
+        if (lg.n_workers > 0) != math.isfinite(lg.loss) or (
+                lg.n_workers == 0 and (lg.n_late == 0 or lg.wire_bytes)):
+            raise AssertionError(f"{ARCH} iteration {lg.step}: loss "
+                                 f"{lg.loss}, {lg.n_workers} workers "
+                                 f"reduced, {lg.n_late} late")
+    first, last = reduced[0].loss, reduced[-1].loss
+    if len(reduced) < 6 or not last < first:
+        raise AssertionError(f"{ARCH} training losses {losses}: fewer than "
+                             f"6 reduce steps, or the last not below the "
+                             f"first")
+    red = run.loop.reducer
+    if red.flat_n != cfg.n_params() or red.step != len(run.reduce_ms) \
+            or red.step != len(reduced):
+        raise AssertionError(f"flat buffer {red.flat_n}, {red.step} reduce "
+                             f"steps, {len(run.reduce_ms)} timed")
+    # medians per call: the first iteration carries cuBLAS's set-up
+    stage_ms = timer.ms()
+    med = {k: float(np.median(v)) for k, v in stage_ms.items()}
+    med["reduce"] = float(np.median(run.reduce_ms))
+    iter_ms = [1e3 * x for x in run.iter_s]
+    sort_share = med["sort"] / med["reduce"]
+    full = {
+        "iterations": len(logs), "n_params": red.flat_n,
+        "w_cap": red._w_cap, "kmax": red.compressor.flat_k(red.flat_n),
+        "host_ms_per_iter": iter_ms,
+        "host_ms_median": float(np.median(iter_ms)),
+        "reduce_ms": run.reduce_ms,
+        "reduce_ms_median": float(np.median(run.reduce_ms)),
+        "stage_ms": stage_ms, "stage_ms_median": med,
+        "sort_share_of_reduce": sort_share, "loss": losses,
+        "lr": LM_LR, "reduce_steps": red.step,
+        "events": [lg.events for lg in logs],
+        "workers": [lg.n_workers for lg in logs],
+        "vectors": [lg.vectors for lg in logs],
+        "wire_bytes": [lg.wire_bytes for lg in logs],
+        "n_late": [lg.n_late for lg in logs],
+        "sim_clock_s": run.loop.clock, "peak_mem_bytes": peak,
+        "launches": launches}
+    del run, red, logs, reduced
+    gc.collect()            # the loop's reference cycles hold 10+ GB
+    torch.cuda.empty_cache()
+    print(f"[train-lm] {ARCH} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {full['n_params']} parameters), "
+          f"{full['iterations']} iterations of build_training's fleet "
+          f"(AdaGrad lr {LM_LR}), {full['reduce_steps']} reduce steps: "
+          f"loss {first:.3f} -> {last:.3f} (all {losses}); host "
+          f"ms/iteration "
+          f"median {full['host_ms_median']:.1f} (range {min(iter_ms):.1f}-"
+          f"{max(iter_ms):.1f}); reduce step median "
+          f"{full['reduce_ms_median']:.1f} ms (range "
+          f"{min(full['reduce_ms']):.1f}-{max(full['reduce_ms']):.1f}; "
+          f"W_cap {full['w_cap']} x {full['n_params']}, kmax "
+          f"{full['kmax']}); medians per call: worker map step "
+          f"{med['worker']:.1f} ms ({len(stage_ms['worker'])} calls), "
+          f"reduce step {med['reduce']:.1f} = sort {med['sort']:.1f} + "
+          f"segment-sum {med['segment-sum']:.1f} + adagrad "
+          f"{med['adagrad']:.1f} + the rest; the sort is "
+          f"{100 * sort_share:.1f}% of the reduce step; workers "
+          f"{full['workers']}, vectors {full['vectors']}, wire bytes "
+          f"{full['wire_bytes']}, events {full['events']}; kernel launches "
+          f"{launches}; peak mem {peak / 2**30:.2f} GiB | {card}")
+
+    # -- reduced: card against CPU, plain / chaos / adaptive keep ---------
+    small = cfg.reduced()
+    gpu = run_lm(small, steps=LM_SMALL_STEPS, seed=0, device="cuda",
+                 lr=LM_LR)
+    cpu = run_lm(small, steps=LM_SMALL_STEPS, seed=0, device="cpu",
+                 lr=LM_LR)
+    rel = same_lm_logs(gpu.logs, cpu.logs, "reduced LM")
+    chaos_gpu, chaos_cpu = chaos_run(small, "cuda"), chaos_run(small, "cpu")
+    chaos_rel = same_lm_logs(chaos_gpu.logs, chaos_cpu.logs, "chaos",
+                             loss_rtol=None)
+    quar = [lg.n_quarantined for lg in chaos_gpu.logs]
+    rolled = [lg.rolled_back for lg in chaos_gpu.logs]
+    if sum(quar) == 0 or not any(rolled):
+        raise AssertionError(f"chaos run: quarantines {quar}, rollbacks "
+                             f"{rolled}: the guardrails were not exercised")
+    runtime.reset_counters()
+    keep_gpu, steps = keep_run(small, "cuda")
+    torch.cuda.synchronize()
+    keep_launches = tk_ops.COUNTER.count
+    runtime.reset_counters()
+    keep_cpu, _ = keep_run(small, "cpu")
+    if tk_ops.COUNTER.count:
+        raise AssertionError("the CPU keep run launched the kernel")
+    keep_rel = same_lm_logs(keep_gpu, keep_cpu, "adaptive keep",
+                            loss_rtol=None)
+    if keep_launches == 0 or keep_launches != steps:
+        raise AssertionError(f"fused_compress launched {keep_launches} "
+                             f"times over {steps} reduce steps")
+    rows = -(-small.n_params() // 128)
+    keeps = [{w: b // 8 // rows for w, b in lg.per_worker_wire_bytes.items()}
+             for lg in keep_gpu]
+    if len(set(keeps[-1].values())) < 2:
+        raise AssertionError(f"adaptive keep: per-block keeps {keeps}")
+    res = {"full": full, "reduced_loss_rel": rel,
+           "reduced_loss": [lg.loss for lg in gpu.logs],
+           "reduced_cpu_loss": [lg.loss for lg in cpu.logs],
+           "chaos_quarantined": quar, "chaos_rolled_back": rolled,
+           "chaos_events": [lg.events for lg in chaos_gpu.logs],
+           "chaos_loss_rel": chaos_rel, "keep_per_block": keeps,
+           "keep_wire_bytes": [lg.wire_bytes for lg in keep_gpu],
+           "keep_launches": keep_launches, "keep_reduce_steps": steps,
+           "keep_loss_rel": keep_rel}
+    print(f"[train-lm] {ARCH}.reduced() card vs CPU, {LM_SMALL_STEPS} "
+          f"iterations each: plain run equal (loss within {rel:.1e} rel); "
+          f"chaos run quarantines {quar}, rollbacks "
+          f"{[int(x) for x in rolled]} equal (loss within {chaos_rel:.1e} "
+          f"rel where finite); adaptive keep per-block keeps "
+          f"{[sorted(k.values()) for k in keeps]} and wire bytes equal "
+          f"(loss within {keep_rel:.1e} rel), fused_compress launches "
+          f"{keep_launches} = reduce steps {steps} | {card}")
     return res
 
 
@@ -1350,6 +1678,7 @@ def main() -> int:
     srv = phase_serve(card)
     train = phase_train(card, fused["demo"]["ms"])
     lm = phase_reduce_lm(card)
+    train_lm = phase_train_lm(card)
     main_api = phase_api(card)
     fa = phase_flash_attention(card, main_api)
     ssd = phase_ssd(card, main_api)
@@ -1377,6 +1706,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/topk_compress/topk_compress.cu",
          "replaces": "src/repro/kernels/topk_compress/topk_compress.py:51",
          "launches": train["launches"],
+         "launches_adaptive_keep": train_lm["keep_launches"],
          "max_abs_err": max(fused["max_abs_err"], lm["max_abs_err"]),
          "ms": demo["ms"], "plain_ms": demo["plain_ms"],
          "bound_ms": demo["bound_ms"], "bound_by": demo["bound_by"],
@@ -1425,7 +1755,7 @@ def main() -> int:
          "build_s": {k: b.seconds for k, b in built.items()},
          "ptxas": {k: b.log for k, b in built.items()}, "kernel": kern,
          "fused_compress": fused, "serve": srv, "train": train,
-         "reduce_lm": lm, "api_launches": launches, "flash_attention": fa,
+         "reduce_lm": lm, "train_lm": train_lm, "api_launches": launches, "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
          "total_s": time.perf_counter() - t_start},
         indent=1, default=str))

@@ -5,16 +5,20 @@ constructor argument of ``MasterEventLoop``.
                     participation)
   PublishConfig     publish_every / publish_fn (hand post-step params to
                     a consumer every N iterations)
+  GuardrailConfig   the NaN/divergence watchdog knobs (from
+                    core/guardrails.py)
 
-``TrainingConfig`` also carries ``guardrails`` and ``hierarchy``; the port
-has neither yet, so a non-``None`` value raises ``NotImplementedError``
-naming its ROADMAP item. All validation happens at construction and names
-the offending value.
+``TrainingConfig`` also carries ``hierarchy``; the port has no two-tier
+hierarchy yet, so a non-``None`` value raises ``NotImplementedError``
+naming ROADMAP A5. All validation happens at construction and names the
+offending value.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
+
+from repro_torch.core.guardrails import GuardrailConfig, TrainingGuardrails
 
 PyTree = Any
 
@@ -51,28 +55,43 @@ class PublishConfig:
                 f"publish_every={self.every} must be >= 0 (0 disables)")
 
 
-@dataclass(frozen=True, eq=False)
+@dataclass(frozen=True, eq=False)   # eq=False: guardrails/fn members
 class TrainingConfig:
     """Everything ``MasterEventLoop`` needs beyond its live components
-    (reducer/cluster/scheduler/allocator)."""
+    (reducer/cluster/scheduler/allocator/frac_controller).
+
+    ``guardrails`` accepts either the frozen ``GuardrailConfig`` knobs
+    (the loop builds its own ``TrainingGuardrails``) or an existing
+    ``TrainingGuardrails`` instance (callers that inspect watchdog state
+    afterwards keep their handle)."""
     T: float = 4.0
     deadline: DeadlineConfig = field(default_factory=DeadlineConfig)
     publish: PublishConfig = field(default_factory=PublishConfig)
-    guardrails: Optional[Any] = None
+    guardrails: Optional[Any] = None    # GuardrailConfig | TrainingGuardrails
     hierarchy: Optional[Any] = None
 
     def __post_init__(self):
         if self.T <= 0.0:
             raise ValueError(f"T={self.T} must be positive (the iteration "
                              f"budget in seconds)")
-        if self.guardrails is not None:
-            raise NotImplementedError(
-                "guardrails (NaN screen, divergence rollback, canary) are "
-                "not ported yet (ROADMAP A2)")
+        if self.guardrails is not None and not isinstance(
+                self.guardrails, (GuardrailConfig, TrainingGuardrails)):
+            raise ValueError(
+                f"guardrails={self.guardrails!r}: expected GuardrailConfig "
+                f"or TrainingGuardrails")
         if self.hierarchy is not None:
             raise NotImplementedError(
                 "the two-tier sub-master hierarchy is not ported yet "
                 "(ROADMAP A5)")
+
+    def resolve_guardrails(self) -> Optional[TrainingGuardrails]:
+        """The live watchdog instance this config asks for (None = trust
+        every message, the paper's behavior)."""
+        if self.guardrails is None:
+            return None
+        if isinstance(self.guardrails, TrainingGuardrails):
+            return self.guardrails
+        return TrainingGuardrails(self.guardrails)
 
     @classmethod
     def from_flat(cls, *, T: float = 4.0,

@@ -13,18 +13,17 @@ The loop is generic over a ``Cluster`` adapter (the discrete-event
 simulator in core/simulation.py) and the reducer. The iteration duration T
 plays the paper's role: workers are budgeted T - latency seconds of
 compute and return gradient sums over however many vectors they managed.
-
-Not ported yet: the guardrails (finite-ness screen, divergence rollback;
-ROADMAP A2) and the adaptive per-worker keep controller (ROADMAP A3).
-Passing either raises ``NotImplementedError``; ``IterationLog`` keeps
-their fields (``n_quarantined``, ``rolled_back``) at 0 / False so logs
-compare field for field with the JAX package's.
+Two optional components ride along: the guardrails
+(``TrainingConfig(guardrails=)``: finite-ness screen, divergence rollback;
+core/guardrails.py) and the adaptive per-worker keep controller
+(``frac_controller=``; core/adaptive_frac.py).
 """
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Protocol, Tuple
 
+from repro_torch.core.adaptive_frac import AdaptiveFracController
 from repro_torch.core.allocator import DataAllocator
 from repro_torch.core.config import TrainingConfig
 from repro_torch.core.elastic import (EventQueue, JoinEvent, LeaveEvent,
@@ -74,30 +73,40 @@ class IterationLog:
     max_upload: float = 0.0      # slowest worker's reduce-step upload (s)
     n_late: int = 0              # workers excluded by the deadline
     deadline: Optional[float] = None   # this iteration's close time (s)
-    n_quarantined: int = 0       # always 0 until the guardrails are ported
-    rolled_back: bool = False    # always False until the guardrails are
+    n_quarantined: int = 0       # NaN/Inf messages screened out this round
+    rolled_back: bool = False    # divergence detected: reducer restored to
+                                 # its last-good snapshot, reduce skipped
 
 
 class MasterEventLoop:
     def __init__(self, *, reducer: MasterReducer, cluster: Cluster,
                  scheduler: Optional[AdaptiveScheduler] = None,
                  allocator: Optional[DataAllocator] = None,
-                 frac_controller: Optional[Any] = None,
+                 frac_controller: Optional[AdaptiveFracController] = None,
                  training: Optional[TrainingConfig] = None):
-        if frac_controller is not None:
-            raise NotImplementedError(
-                "the adaptive per-worker keep controller is not ported yet "
-                "(ROADMAP A3)")
         training = training or TrainingConfig()
         self.training = training
         self.reducer = reducer
         self.cluster = cluster
         self.scheduler = scheduler or AdaptiveScheduler(T=training.T)
         self.allocator = allocator or DataAllocator()
+        # NaN/divergence watchdog; None = trust every message (the
+        # paper's behavior)
+        self.guardrails = training.resolve_guardrails()
         self.deadline_quantile = training.deadline.quantile
         self.deadline_slack = training.deadline.slack
         self.publish_every = training.publish.every
         self.publish_fn = training.publish.fn
+        # measurement -> controller -> per-worker channel: scales each
+        # worker's keep-fraction to its measured uplink
+        self.frac_controller = frac_controller
+        if frac_controller is not None:
+            if reducer.compressor is None or not reducer.fused:
+                raise ValueError("frac_controller needs a fused compressed "
+                                 "reducer (compressor=..., fused=True)")
+            # one iteration budget: the controller sizes uploads against
+            # the same T the scheduler budgets compute against
+            frac_controller.T = self.scheduler.T
         self.registry = WorkerRegistry()
         self.events = EventQueue()
         self.clock = 0.0
@@ -131,18 +140,22 @@ class MasterEventLoop:
                 orphans = self.allocator.remove_worker(ev.worker)
                 self.scheduler.remove_worker(ev.worker)
                 self.reducer.drop_worker(ev.worker)
+                if self.frac_controller is not None:
+                    self.frac_controller.drop_worker(ev.worker)
                 notes.append(f"leave:{ev.worker}(orphans={len(orphans)})")
         return notes
 
     # ------------------------------------------------------------------
-    def _predicted_wire_bytes(self) -> int:
+    def _predicted_wire_bytes(self, worker: str,
+                              keep: Optional[Dict[str, int]]) -> int:
         """Exact bytes the reducer will account for this worker's message
         — computable BEFORE the reduce, so upload time participates in the
         deadline classification."""
         red = self.reducer
         if red.compressor is None:
             return 4 * red.flat_n
-        return 8 * red.compressor.flat_k(red.flat_n)
+        return 8 * red.compressor.flat_k(red.flat_n,
+                                         (keep or {}).get(worker))
 
     def iteration(self) -> IterationLog:
         notes = self._process_events()                           # (a),(b)
@@ -181,9 +194,33 @@ class MasterEventLoop:
             self.submit(LeaveEvent(w))
             notes.append(f"lost:{w}")
 
+        # ---- guardrail layer 1: finite-ness screen ----
+        # a NaN/Inf message is quarantined BEFORE the reduce — excluded
+        # from the weighted average, the loss, and its own error-feedback
+        # residual — and repeat offenders leave through the ordinary
+        # membership path
+        quarantined: List[str] = []
+        if self.guardrails is not None and messages:
+            messages, quarantined = self.guardrails.screen(messages)
+            for w in quarantined:
+                notes.append(f"quarantine:{w}")
+                if self.guardrails.record_offense(w):
+                    self.submit(LeaveEvent(w))
+                    notes.append(f"evict:{w}")
+
         # synthetic-compute clusters send empty gradient dicts (throughput
         # studies): count vectors but skip the parameter update
         has_grads = any(len(g) > 0 for g, _ in messages.values())
+
+        # per-worker keep counts must precede the deadline split: message
+        # size decides upload time, which decides who makes the deadline
+        keep = None
+        if self.frac_controller is not None and messages and has_grads:
+            # bandwidth/latency estimates from step (d) of PREVIOUS
+            # iterations pick this iteration's per-worker keep counts
+            keep = self.frac_controller.assign(
+                self.reducer.compressor, self.reducer.flat_n,
+                {w: self.scheduler.stats[w] for w in messages})
 
         # ---- deadline classification: who makes the reduce? ----
         uploads: Dict[str, float] = {}
@@ -191,7 +228,7 @@ class MasterEventLoop:
         finishes: Dict[str, float] = {}
         upload_fn = getattr(self.cluster, "upload_time", None)
         for w, r in results.items():
-            nbytes = (self._predicted_wire_bytes()
+            nbytes = (self._predicted_wire_bytes(w, keep)
                       if w in messages and has_grads else 0)
             t_up = (upload_fn(w, nbytes)
                     if upload_fn is not None and nbytes else 0.0)
@@ -203,26 +240,44 @@ class MasterEventLoop:
         for w in late:
             notes.append(f"late:{w}")
 
-        # ---- (c) reduce step (on-time workers only) ----
+        # ---- (c) reduce step (on-time, unquarantined workers only) ----
         loss = float("nan")
         wire_bytes = 0
         per_bytes: Dict[str, int] = {}
-        on_time = {w: r for w, r in results.items() if w not in late}
+        rolled_back = False
+        on_time = {w: r for w, r in results.items()
+                   if w not in late and w not in quarantined}
         vectors = sum(r.n_vectors for r in on_time.values())
         if messages and has_grads:
             late_msgs = [w for w in late if w in messages]
             if len(late_msgs) < len(messages):
                 # the round's loss, evaluated at the CURRENT params (the
-                # previous step's output)
+                # previous step's output): what the divergence watchdog
+                # judges before another step compounds it
                 tot = sum(messages[w][1] for w in messages
                           if w not in late)
                 loss = (sum(r.loss_sum for w, r in on_time.items())
                         / max(tot, 1))
-                # late workers ride the reduce live-masked to zero; their
-                # corrected gradient parks in their error-feedback residual
-                self.reducer.reduce_and_step(messages, defer=late_msgs)
-                wire_bytes = self.reducer.last_wire_bytes
-                per_bytes = dict(self.reducer.last_per_worker_bytes)
+                if self.guardrails is not None \
+                        and self.guardrails.check_divergence(loss):
+                    # guardrail layer 2: the previous step poisoned the
+                    # params. Restore the last-good snapshot and SKIP this
+                    # round's reduce (its gradients saw diverged params).
+                    self.guardrails.rollback(self.reducer)
+                    rolled_back = True
+                    notes.append("rollback")
+                else:
+                    if self.guardrails is not None:
+                        # this loss vouched for the pre-step params:
+                        # refresh the last-good snapshot BEFORE stepping
+                        self.guardrails.observe_healthy(loss)
+                        self.guardrails.snapshot(self.reducer)
+                    # late workers ride the reduce live-masked to zero;
+                    # their corrected gradient parks in their residual
+                    self.reducer.reduce_and_step(messages, keep=keep,
+                                                 defer=late_msgs)
+                    wire_bytes = self.reducer.last_wire_bytes
+                    per_bytes = dict(self.reducer.last_per_worker_bytes)
             else:
                 # every reply missed the deadline: no update this
                 # iteration, but none of the mass is lost
@@ -259,7 +314,8 @@ class MasterEventLoop:
             mean_latency=sum(lat) / len(lat), loss=loss, events=notes,
             wire_bytes=wire_bytes, per_worker_wire_bytes=per_bytes,
             max_upload=max(uploads.values()) if uploads else 0.0,
-            n_late=len(late), deadline=deadline)
+            n_late=len(late), deadline=deadline,
+            n_quarantined=len(quarantined), rolled_back=rolled_back)
         self.history.append(log)
         self._maybe_publish()
         return log
@@ -287,7 +343,7 @@ class MasterEventLoop:
             elif isinstance(ev, UploadDataEvent):
                 events.append({"type": "data",
                                "indices": [int(i) for i in ev.indices]})
-        return {
+        st = {
             "step": self.step,
             "clock": self.clock,
             "history": [asdict(lg) for lg in self.history],
@@ -297,12 +353,22 @@ class MasterEventLoop:
             "allocator": self.allocator.state_dict(),
             "reducer": self.reducer.state_dict(),
         }
+        if self.frac_controller is not None:
+            st["frac_controller"] = self.frac_controller.state_dict()
+        if self.guardrails is not None:
+            st["guardrails"] = self.guardrails.state_dict()
+        return st
 
     def load_state_dict(self, st: Dict[str, Any]) -> None:
-        if "frac_controller" in st or "guardrails" in st:
-            raise NotImplementedError(
-                "snapshot carries frac-controller or guardrail state, which "
-                "the port does not have yet (ROADMAP A2, A3)")
+        if (self.frac_controller is None) != ("frac_controller" not in st):
+            # dropping the hysteresis memory silently would make the
+            # resumed run re-bucket differently — fail loudly instead
+            raise ValueError(
+                "frac_controller mismatch: snapshot "
+                f"{'has' if 'frac_controller' in st else 'lacks'} "
+                f"controller state but this loop was built "
+                f"{'without' if self.frac_controller is None else 'with'} "
+                f"one")
         self.step = int(st["step"])
         self.clock = float(st["clock"])
         self.history = [IterationLog(**lg) for lg in st["history"]]
@@ -320,6 +386,13 @@ class MasterEventLoop:
         self.scheduler.load_state_dict(st["scheduler"])
         self.allocator.load_state_dict(st["allocator"])
         self.reducer.load_state_dict(st["reducer"])
+        if self.frac_controller is not None:
+            self.frac_controller.load_state_dict(st["frac_controller"])
+        if self.guardrails is not None and "guardrails" in st:
+            # a snapshot without watchdog state resumes it fresh
+            # (strikes/window re-arm): no numerical trajectory depends on
+            # watchdog memory
+            self.guardrails.load_state_dict(st["guardrails"])
 
     # ------------------------------------------------------------------
     def run(self, n_iterations: int,

@@ -11,8 +11,9 @@ Reproduces the experimental setting of MLitB §3.5 on one machine:
     the scripted ``straggle``), mid-iteration death (``kill`` and the
     per-profile ``reliability`` draw) and seeded fault injection
     (``FaultProfile``, ``poison``);
-  - compute modes: "real" (actual gradients of the paper's conv net on
-    allocated synthetic-MNIST vectors, computed on the problem's device)
+  - compute modes: "real" (actual gradients of a ready-made problem on
+    the allocated vectors, computed on the problem's device: the paper's
+    conv net on synthetic MNIST, or next-token training of a dense LM)
     and "synthetic" (power-model only).
 
 Every draw comes from the same ``numpy.random.RandomState`` streams in the
@@ -22,9 +23,8 @@ same latencies, deaths, faults and subset choices. ``state_dict`` /
 
 ``generate_requests`` (the serving workload) lives in
 ``repro_torch.serving.requests``. The hierarchy's pieces
-(``RegionalNetworkModel`` and region-scoped congestion, ROADMAP A5) and
-``make_lm_problem`` (LM training, ROADMAP A1) are not ported yet: every
-worker here queues at the one master.
+(``RegionalNetworkModel`` and region-scoped congestion, ROADMAP A5) are
+not ported yet: every worker here queues at the one master.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.event_loop import ComputeResult
-from repro_torch.core.flatbuf import tree_map
+from repro_torch.core.flatbuf import build_tree, tree_map, tree_paths
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models import cnn
 
@@ -430,3 +430,34 @@ def make_cnn_problem(seed: int = 0, device: DeviceLike = "cuda"):
             return float(wrong.float().mean())
 
     return init_params, grad_fn, eval_fn
+
+
+def make_lm_problem(cfg, n_data: int = 512, seq_len: int = 16,
+                    seed: int = 0, device: DeviceLike = "cuda"):
+    """(data, grad_fn) for next-token training of a dense ``ArchConfig``
+    LM on synthetic token sequences: the same numpy stream and windows as
+    the JAX package's. ``data = (X, y)`` with X (n, S) int32 token windows
+    and y their one-step-shifted labels (numpy). grad_fn(params, X, y)
+    returns (grad_SUM, loss_SUM) per the paper's sum-then-weighted-average
+    protocol, computing on ``device``: the gradient tree has the params'
+    key paths, one leaf per ``tree_leaves(params)`` leaf."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import softmax_xent
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    stream = rng.randint(0, cfg.vocab_size,
+                         size=n_data + seq_len).astype(np.int32)
+    X = np.stack([stream[i:i + seq_len] for i in range(n_data)])
+    y = np.stack([stream[i + 1:i + 1 + seq_len] for i in range(n_data)])
+
+    def grad_fn(params, Xb, yb):
+        paths, leaves = zip(*[(p, x.detach().requires_grad_(True))
+                              for p, x in tree_paths(params)])
+        logits, _ = tf.forward(build_tree(paths, leaves), cfg,
+                               torch.as_tensor(Xb, device=dev), remat=False)
+        s, _ = softmax_xent(logits, torch.as_tensor(yb, device=dev))
+        grads = torch.autograd.grad(s, leaves)
+        return build_tree(paths, list(grads)), float(s.detach())
+
+    return (X, y), grad_fn

@@ -28,7 +28,11 @@ SOURCE = Path(__file__).with_name("topk_compress.cu")
 BLOCK_TOPK_SOURCE = Path(__file__).with_name("block_topk.cu")
 COUNTER = launch_counter("fused_compress")
 BLOCK_TOPK_COUNTER = launch_counter("block_topk")
-MAX_BLOCK_W = 1024           # 32 lanes x 32 registers per lane
+# the CUDA kernel's widest block: 32 lanes x 32 registers per lane. The
+# plain version takes any width; no config uses more than 128
+# (``GradientCompressor.block_w``), so the card refuses wider blocks
+# rather than carrying a second kernel path
+MAX_BLOCK_W = 1024
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -50,9 +54,13 @@ def _check(g: torch.Tensor, r: torch.Tensor, k: int, block_w: int) -> None:
     if g.device != r.device:
         raise ValueError(f"fused_block_topk_batched: g on {g.device}, r on "
                          f"{r.device}")
-    if not 1 <= block_w <= MAX_BLOCK_W:
+    if block_w < 1:
         raise ValueError(f"fused_block_topk_batched: block_w={block_w} must "
-                         f"lie in [1, {MAX_BLOCK_W}]")
+                         f"be >= 1")
+    if g.device.type != "cpu" and block_w > MAX_BLOCK_W:
+        raise ValueError(f"fused_block_topk_batched: block_w={block_w} must "
+                         f"lie in [1, {MAX_BLOCK_W}] for the CUDA kernel "
+                         f"(the CPU's plain version takes any width)")
     if k < 1:
         raise ValueError(f"fused_block_topk_batched: k={k} must be >= 1")
 

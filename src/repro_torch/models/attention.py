@@ -1,7 +1,9 @@
-"""Attention for the serving path: GQA with RoPE over the engine's KV caches.
+"""Attention: GQA with RoPE over full sequences (training) and over the
+serving engine's KV caches.
 
-The PyTorch counterpart of ``repro.models.attention`` (the functions the
-continuous-batching engine runs). Layouts are the JAX package's:
+The PyTorch counterpart of ``repro.models.attention`` (full-sequence
+self-attention and the functions the continuous-batching engine runs).
+Layouts are the JAX package's:
 
   q projections    (d, H, hd)        H = query heads
   k/v projections  (d, K, hd)        K = kv heads (GQA groups G = H/K)
@@ -106,6 +108,46 @@ def grouped_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", as_dtype(w, v.dtype), v)
     return o.reshape(B, S, H, hd)
+
+
+def make_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+              window: int = 0) -> torch.Tensor:
+    """(B?,S),(B?,T) -> bool (.., 1, 1, S, T) for ``grouped_attend``."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m = m & (kp <= qp)
+    if window:
+        m = m & (kp > qp - window)
+    return m[..., None, None, :, :]
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence (training) attention
+# ---------------------------------------------------------------------------
+def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+              causal: bool = True, window: int = 0, use_rope: bool = True,
+              rope_theta: float = 10000.0,
+              xkv: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention over the whole sequence x (B,S,d) at ``positions``
+    (S,) — causal and/or sliding-window — on plain tensor ops, as the
+    JAX training forward (autograd differentiates it). Cross-attention
+    (``xkv=``) belongs to the audio family, which the port has not yet."""
+    if xkv is not None or kv_positions is not None:
+        raise NotImplementedError(
+            "cross-attention (xkv=) is the audio family's and is not "
+            "ported yet (ROADMAP C7)")
+    q, k, v = _project_qkv(p, x, x)
+    if use_rope:
+        cos, sin = rope_tables(positions, q.shape[-1], rope_theta)
+        q = rotate(q, cos, sin)
+        k = rotate(k, cos, sin)
+    mask = make_mask(positions, positions, causal, window) \
+        if (causal or window) else None
+    return _out_proj(p, grouped_attend(q, k, v, mask))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, rotary embeddings, MLPs, embeddings.
+"""Shared building blocks: norms, rotary embeddings, MLPs, embeddings and
+the token cross-entropy.
 
 The PyTorch counterpart of ``repro.models.layers``. Parameters live in a
 ``ParamTree`` — an ``nn.Module`` that holds the same nested names as the
@@ -10,7 +11,7 @@ plain functions on tensors. Layer-stacked parameters carry a leading
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -157,9 +158,35 @@ def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+    """``table[tokens]``. ``F.embedding``'s backward sums each row's
+    repeated tokens in a fixed order; plain indexing's accumulates them
+    in a thread-dependent order, so a training step would not repeat
+    bit for bit."""
+    return F.embedding(tokens.long(), table)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """table: (V, d), x: (..., d) -> logits (..., V), computed in f32."""
     return f32(x) @ f32(table).t()
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token cross-entropy in f32. Returns (sum_loss, n_tokens) so callers
+    can do the paper's weighted reduce (sum over workers / global count).
+    The label pick is a gather: the port has no vocab sharding, which is
+    why the JAX package contracts with a one-hot instead."""
+    logits = f32(logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    mask = mask.float()
+    return torch.sum(nll * mask), torch.sum(mask)
+

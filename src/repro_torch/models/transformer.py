@@ -1,4 +1,5 @@
-"""Dense decoder LM: parameters and the serving engine's step functions.
+"""Dense decoder LM: parameters, the training forward and the serving
+engine's step functions.
 
 The PyTorch counterpart of ``repro.models.transformer`` for the dense
 family. The parameter tree has the JAX package's names and layouts —
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
@@ -29,7 +31,7 @@ def _check_dense(cfg: ArchConfig) -> None:
     if cfg.arch_type != "dense":
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} is not ported; the "
-            f"port serves the dense family (ROADMAP C7: MoE/VLM/audio/SSM)")
+            f"port runs the dense family (ROADMAP C7: MoE/VLM/audio/SSM)")
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +138,41 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return unembed(head, x)
+
+
+# ---------------------------------------------------------------------------
+# Full forward (training path)
+# ---------------------------------------------------------------------------
+def _attn_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    h = apply_norm(bp["ln1"], x, cfg.norm_eps)
+    x = x + attn_mod.attention(
+        bp["attn"], h, positions, causal=True, window=cfg.sliding_window,
+        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
+    return _ffn(bp, x, cfg)
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> (logits (B,S,V) f32, aux loss 0), the dense family
+    only. Layer ``i`` reads the ``[i]`` views of the blocks' stacked
+    leaves, so autograd writes each gradient into the stacked leaf the
+    flat buffer holds. ``remat=True`` recomputes each block's activations
+    in the backward pass (``torch.utils.checkpoint``), as the JAX
+    forward's ``jax.checkpoint`` does."""
+    _check_dense(cfg)
+    x = _embed_in(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)
+    for i in range(cfg.n_layers):
+        bp = layer(params["blocks"], i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _attn_block, bp, x, positions, cfg, use_reentrant=False)
+        else:
+            x = _attn_block(bp, x, positions, cfg)
+    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
 
 
 # ---------------------------------------------------------------------------

@@ -240,7 +240,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert proc.returncode == 0, proc.stderr
     line = proc.stdout.strip().splitlines()[-1]
     assert line.startswith("BAD [] PORT "), line
-    assert int(line.split()[-1]) >= 54
+    assert int(line.split()[-1]) >= 58
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

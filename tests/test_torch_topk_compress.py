@@ -119,15 +119,32 @@ def test_integer_rows_full_of_ties():
 
 
 def test_block_w_range_is_checked():
+    """The plain version takes any width >= 1; the kernel route (any
+    tensor off the CPU) refuses W > 1024 before it launches anything."""
     g = torch.zeros(1, 64)
-    with pytest.raises(ValueError, match="block_w=1025"):
-        fused_block_topk_batched(g, g, k=1, block_w=1025)
     with pytest.raises(ValueError, match="block_w=0"):
         fused_block_topk_batched(g, g, k=1, block_w=0)
     with pytest.raises(ValueError, match="k=0"):
         fused_block_topk_batched(g, g, k=0, block_w=8)
-    v, i, res = fused_block_topk_batched(g, g, k=2, block_w=1024)
-    assert v.shape == (1, 1, 2) and i.tolist() == [[[0, 0]]]
+    for W in (1024, 1025):
+        v, i, res = fused_block_topk_batched(g, g, k=2, block_w=W)
+        assert v.shape == (1, 1, 2) and i.tolist() == [[[0, 0]]]
+    m = torch.zeros(1, 64, device="meta")
+    with pytest.raises(ValueError, match="block_w=1025 .* CUDA kernel"):
+        fused_block_topk_batched(m, m, k=1, block_w=1025)
+
+
+def test_block_w_wider_than_the_kernel_on_the_cpu():
+    """W = 2048, wider than the CUDA kernel's 1024: the CPU's plain
+    version equals the Pallas kernel bit for bit (2 x 5000 values,
+    k = 4)."""
+    rng = np.random.RandomState(2048)
+    g = rng.randn(2, 5000).astype(np.float32)
+    r = (rng.randn(2, 5000) * 0.3).astype(np.float32)
+    jv, tv = _both_batched(g, r, 4, 2048)
+    assert tv[0].shape == (2, 3, 4)
+    for a, b in zip(jv, tv):
+        assert _same(a, b)
 
 
 # ---------------------------------------------------------------------------

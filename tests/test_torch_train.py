@@ -294,14 +294,13 @@ def test_unported_training_options_raise():
     p = {"w": torch.zeros(4)}
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         MasterReducer(p, get_optimizer("sgd"), fused=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        TrainingConfig(guardrails=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         TrainingConfig(hierarchy=object())
-    from repro_torch.core import MasterEventLoop
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        MasterEventLoop(reducer=MasterReducer(p, get_optimizer("sgd")),
-                        cluster=None, frac_controller=object())
+    from repro_torch.launch import train, train_serve
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        train_serve.run_train_serve(train_serve.tiny_cfg(), [])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        train.main(["--device", "cpu"])
     with pytest.raises(ValueError, match="deadline_quantile=1.5"):
         TrainingConfig.from_flat(deadline_quantile=1.5)
 
