@@ -61,25 +61,49 @@ result):
    adaptive-keep run (blocktopk at block_w 128, three uplinks, the
    per-worker keep controller: per-worker keeps and wire bytes equal,
    ``fused_compress`` launched once per reduce step on the card);
-8. kernel API (slice 3) — the port's public kernel API
+8. train-serve (slice 7) — ``run_train_serve``, the live train->serve
+   loop, at ``mlitb-lm-100m``'s full width: 12 iterations of the churny
+   fleet (AdaGrad lr 0.003, a publish every 2) hot-swapping into the
+   paged engine (16-token pages, 16 slots x 256, prompt cap 64, flash
+   decode, greedy) while 64 requests of the train-serve launcher's shape
+   arrive at 30 rps from 1 s before the publish of step 4 (its clock
+   read from a training-only pass of the same seeded loop); the launch
+   counters reset just before and read just after: flash_decode once
+   per layer per version per decode step, at least one decode step over
+   two versions, every reduced loss finite and falling; every completion
+   replayed solo under its pinned version on the plain decode path
+   (streams equal up to the near-tie rule); host ms per iteration, wall
+   ms per single- and mixed-version decode step, host us per swap, peak
+   memory, and the cost model's simulated tokens/s and p50/p95;
+9. train-serve-small — the same loop at ``mlitb-lm-100m.reduced()`` on
+   the card and on the CPU with a burst overloading a 2-slot engine and
+   a 4-deep ``drop_oldest`` queue with an admission deadline: training
+   events and wire bytes, publishes, sheds, versions served and every
+   completion's clock equal; the sampler card = CPU on one logits tensor
+   at T 0.8, top-k 20 and 1 (top-k 1 = argmax); a TrainState written on
+   the card after 4 iterations, reloaded and resumed for 4 more equal to
+   the uninterrupted run bit for bit (else the phase names where they
+   part), and an engine seeded from it serving what the loop's params
+   serve;
+10. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
    ``mlitb-lm-100m``'s prefill (16 slots x 512 tokens, f32) and
    ``qwen3-4b``'s heads at 4096 tokens (bf16), ``ssd_scan`` at
    ``mamba2-780m``'s widths (B 4, S 2048, f32), ``block_topk`` over
    ``mlitb-lm-100m``'s flat buffer (f32 and bf16) and the conv net's;
-9. flash_attention, ssd_scan, block_topk — each kernel against its plain
+11. flash_attention, ssd_scan, block_topk — each kernel against its plain
    PyTorch version: the JAX kernel tests' cases and the edge cases
    (S != T, fully masked rows, no keys at all, ragged non-causal keys,
    D = 256, sliding windows at full-width heads, the LM's heads in bf16;
    bf16 also row by row; Q not a power of two, bf16, N = 64, one chunk,
    S = chunk + 1, hd 32 and 128, N 4 and 12, a call cut into windows of
    chunks; NaN / signed-zero / infinity / tie rows, W > 1024), then the
-   full-width outputs of phase 8 (and the scan at one sequence of
+   full-width outputs of phase 10 (and the scan at one sequence of
    ``mamba2-780m``); then each kernel's time per launch beside its plain
    version's, a library yardstick's (SDPA; ``torch.topk``; none for the
    scan) and the least time the card could take;
-10. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
+12. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. Imports ``torch``,
@@ -88,6 +112,7 @@ Details go to ``chiprun_out/chip_smoke.json``. Imports ``torch``,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -111,6 +136,7 @@ from repro_torch.core import (AdaptiveFracController,  # noqa: E402
                               GuardrailConfig, JoinEvent, MasterEventLoop,
                               MasterReducer, TrainingConfig,
                               UploadDataEvent, flat_spec)
+from repro_torch.core.flatbuf import tree_leaves  # noqa: E402
 from repro_torch.core import reducer as reducer_mod  # noqa: E402
 from repro_torch.core import simulation as sim  # noqa: E402
 from repro_torch.core.config import DeadlineConfig  # noqa: E402
@@ -127,12 +153,15 @@ from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
     block_topk_flat_ref, fused_block_topk_batched_ref)
 from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
 from repro_torch.launch.train import run_lm  # noqa: E402
+from repro_torch.launch.train_serve import (build_training,  # noqa: E402
+                                            run_train_serve)
 from repro_torch.models import transformer as tf  # noqa: E402
 import repro_torch.optim as optim  # noqa: E402
 from repro_torch.optim import adagrad, sgd  # noqa: E402
 from repro_torch.models.attention import _pow2_kv_block  # noqa: E402
-from repro_torch.serving import (PagingConfig, ServingConfig,  # noqa: E402
-                                 ServingEngine, generate_requests)
+from repro_torch.serving import (PagingConfig, ServeRequest,  # noqa: E402
+                                 ServingConfig, ServingEngine,
+                                 generate_requests)
 
 ARCH = "mlitb-lm-100m"
 # the served engine: paged pool, 16-token pages, 16 slots of 512 tokens
@@ -442,8 +471,9 @@ def serve(params, cfg, reqs, kernel: str):
 
     def timed(*a):
         t0 = time.perf_counter()
-        inner(*a)                     # ends in a device-to-host copy
+        out = inner(*a)               # ends in a device-to-host copy
         step_s.append(time.perf_counter() - t0)
+        return out
     eng._step_decode = timed
     return eng, eng.run_closed_loop(reqs), step_s
 
@@ -1165,6 +1195,410 @@ def phase_train_lm(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 7: the live train->serve loop
+# ---------------------------------------------------------------------------
+# full width: run_train_serve's loop at the reference CLI's shape, on the
+# paged engine with the flash-decode kernel; AdaGrad at LM_LR (the
+# default 0.1 diverges the full-width LM)
+TS_ITERS, TS_PUBLISH, TS_REQUESTS, TS_RATE = 12, 2, 64, 30.0
+# at full width a reduce's 80 MB uploads take ~6.3 s of the fleet's
+# clock, so publishes land ~14 s apart: the schedule opens TS_LEAD_S
+# before the publish of step TS_CENTER_STEP (read from a training-only
+# pass: serving never moves the training clock) so that requests in
+# flight under the old version meet admissions under the new one
+TS_CENTER_STEP, TS_LEAD_S = 4, 1.0
+TS_SERVE = dict(max_batch=16, max_seq=256, prompt_cap=64, page_size=16)
+TS_REPLAY_S = 60.0           # replay every completion within this budget
+# reduced size, card against CPU: a burst overloads a 2-slot engine with
+# a 4-deep queue, so requests shed both ways (displaced, deadline)
+TS_SMALL_ITERS = 8
+TS_SMALL_SERVE = dict(max_batch=2, max_seq=64, prompt_cap=16, page_size=8,
+                      max_queue=4, shed_policy="drop_oldest",
+                      admission_deadline=0.04)
+TS_SMALL_LOAD = dict(n=64, rate=8.0, burst=(1.5, 0.8, 12.0))
+RESUME_AT, RESUME_MORE = 4, 4
+
+
+def ts_requests(cfg, n: int, max_seq: int, rate: float, burst=None):
+    """``launch.train_serve``'s request shape for ``max_seq``."""
+    g_hi = max(2, max_seq // 4)
+    return generate_requests(
+        n, rate_rps=rate, vocab_size=cfg.vocab_size,
+        prompt_rng=(4, max(8, max_seq - g_hi - 1)),
+        gen_short=(2, max(3, g_hi // 2)), gen_long=(g_hi // 2 + 1, g_hi),
+        burst=burst, seed=1)
+
+
+@contextlib.contextmanager
+def train_serve_timers(rec: dict):
+    """Host clocks, for the runs inside the block: each training
+    iteration (ending in a device sync), each engine decode step (one
+    dispatch per live version; ends in a device-to-host copy) with its
+    number of versions and, for mixed steps, the rids it served, and each
+    ``swap_params``."""
+    iteration = MasterEventLoop.iteration
+    step_decode = ServingEngine._step_decode
+    swap = ServingEngine.swap_params
+
+    def timed_iteration(self):
+        t0 = time.perf_counter()
+        out = iteration(self)
+        torch.cuda.synchronize()
+        rec["iter_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_decode(self, *a):
+        live = [s for s in range(self.max_batch) if self._live[s]]
+        vers = {self._slots[s].ver for s in live}
+        rids = [self._slots[s].req.rid for s in live]
+        t0 = time.perf_counter()
+        out = step_decode(self, *a)
+        rec["decode"].append((len(vers), time.perf_counter() - t0))
+        if len(vers) > 1:
+            rec["mixed_rids"].update(rids)
+        return out
+
+    def timed_swap(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = swap(self, *a, **kw)
+        rec["swap_s"].append(time.perf_counter() - t0)
+        return out
+
+    MasterEventLoop.iteration = timed_iteration
+    ServingEngine._step_decode = timed_decode
+    ServingEngine.swap_params = timed_swap
+    try:
+        yield
+    finally:
+        MasterEventLoop.iteration = iteration
+        ServingEngine._step_decode = step_decode
+        ServingEngine.swap_params = swap
+
+
+def check_reduce_losses(logs, what: str) -> list:
+    """Every iteration that reduced has a finite loss, the others none;
+    the last reduced loss is below the first. Returns the losses."""
+    reduced = [lg for lg in logs if lg.n_workers > 0]
+    for lg in logs:
+        if (lg.n_workers > 0) != math.isfinite(lg.loss):
+            raise AssertionError(f"{what} iteration {lg.step}: loss "
+                                 f"{lg.loss}, {lg.n_workers} workers")
+    if len(reduced) < 2 or not reduced[-1].loss < reduced[0].loss:
+        raise AssertionError(f"{what}: losses {[lg.loss for lg in logs]}: "
+                             f"fewer than 2 reduces, or the last not below "
+                             f"the first")
+    return [lg.loss for lg in reduced]
+
+
+def replay_completions(cfg, out, reqs, mixed: set) -> dict:
+    """Replay completions solo on a fresh dense engine under their pinned
+    version with the plain decode path; each greedy stream must equal the
+    served one up to the near-tie rule. One completion per version and
+    every one that shared a decode step with another version first, then
+    the rest while the budget lasts."""
+    by_rid = {r.rid: r for r in reqs}
+    comps = sorted(out["stats"].completions, key=lambda c: c.rid)
+    must, seen = [], set()
+    for c in comps:
+        if c.version not in seen or c.rid in mixed:
+            must.append(c)
+            seen.add(c.version)
+    rest = [c for c in comps if c not in must]
+    engines, replayed, ties, compared = {}, [], [], 0
+    t0 = time.perf_counter()
+    for c in must + rest:
+        if c not in must and time.perf_counter() - t0 > TS_REPLAY_S:
+            break
+        params = out["versions"][c.version]
+        if c.version not in engines:
+            engines[c.version] = ServingEngine(
+                params, cfg, serving=ServingConfig(
+                    max_batch=1, max_seq=TS_SERVE["max_seq"],
+                    prompt_cap=TS_SERVE["prompt_cap"],
+                    decode_kernel="plain"), device="cuda")
+        req = by_rid[c.rid]
+        solo = engines[c.version].run_closed_loop([ServeRequest(
+            rid=c.rid, prompt=req.prompt, max_new=req.max_new)])
+        want = solo.completions[0].tokens.tolist()
+        for i, (a, b) in enumerate(zip(c.tokens.tolist(), want)):
+            if a != b:
+                gap = top2_gap(params, cfg, list(req.prompt) + want[:i])
+                if gap >= GAP_TIE:
+                    raise AssertionError(
+                        f"[train-serve] request {c.rid} (v{c.version}) "
+                        f"token {i}: served {a} vs solo replay {b}, plain "
+                        f"top-2 gap {gap:.3e} >= {GAP_TIE}: corrupted")
+                ties.append((c.rid, i, gap))
+                break
+            compared += 1
+        replayed.append(c.rid)
+    return {"replayed": replayed, "n_completions": len(comps),
+            "mixed_rids": sorted(mixed), "tokens_compared": compared,
+            "near_ties": ties, "replay_s": time.perf_counter() - t0}
+
+
+def phase_train_serve(card: str) -> dict:
+    cfg = get_config(ARCH)
+    loop_kw = dict(iterations=TS_ITERS, publish_every=TS_PUBLISH, T=0.5,
+                   seed=0, lr=LM_LR, decode_kernel="flash", device="cuda",
+                   **TS_SERVE)
+    dry = run_train_serve(cfg, [], **loop_kw)["published"]
+    t_pub = dict((v, t) for t, v in dry)[TS_CENTER_STEP]
+    gc.collect()
+    reqs = [dataclasses.replace(r, arrival=r.arrival + t_pub - TS_LEAD_S)
+            for r in ts_requests(cfg, TS_REQUESTS, TS_SERVE["max_seq"],
+                                 TS_RATE)]
+    rec = {"iter_s": [], "decode": [], "mixed_rids": set(), "swap_s": []}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counters()
+    with train_serve_timers(rec):
+        out = run_train_serve(cfg, reqs, **loop_kw)
+    torch.cuda.synchronize()
+    launches = fd_ops.COUNTER.count
+    other = {k: c.count for k, c in runtime.COUNTERS.items()
+             if c.count and k != fd_ops.COUNTER.name}
+    peak = torch.cuda.max_memory_allocated()
+    st, eng = out["stats"], out["engine"]
+    losses = check_reduce_losses(out["logs"], f"[train-serve] {ARCH}")
+    single = [dt for nv, dt in rec["decode"] if nv == 1]
+    mixed = [dt for nv, dt in rec["decode"] if nv > 1]
+    mixed_dispatches = sum(nv for nv, _ in rec["decode"] if nv > 1)
+    if not mixed:
+        raise AssertionError("[train-serve] no decode step mixed versions")
+    if launches != st.decode_dispatches * cfg.n_layers or other:
+        raise AssertionError(f"flash_decode launched {launches} times over "
+                             f"{st.decode_dispatches} decode dispatches x "
+                             f"{cfg.n_layers} layers; others {other}")
+    if out["published"] != dry:
+        raise AssertionError(f"[train-serve] publishes {out['published']} "
+                             f"vs the training-only pass's {dry}")
+    if st.n_requests != len(reqs) or st.n_shed or eng.has_work \
+            or len(st.versions_served) < 2 or st.swap_count < 2:
+        raise AssertionError(f"[train-serve] served {st.n_requests}/"
+                             f"{len(reqs)}, shed {st.n_shed}, versions "
+                             f"{st.versions_served}, swaps {st.swap_count}")
+    by_rid = {r.rid: r for r in reqs}
+    for c in st.completions:
+        if c.tokens.shape != (by_rid[c.rid].max_new,) \
+                or c.tokens.min() < 0 or c.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {c.rid}: bad stream {c.tokens}")
+    replay = replay_completions(cfg, out, reqs, rec["mixed_rids"])
+    iter_ms = [1e3 * s for s in rec["iter_s"]]
+    res = {
+        "iterations": len(out["logs"]), "loss": losses,
+        "schedule_opens_s": reqs[0].arrival,
+        "publishes": out["published"], "swaps": st.swap_count,
+        "versions_served": st.versions_served,
+        "decode_steps": len(rec["decode"]),
+        "decode_dispatches": st.decode_dispatches,
+        "mixed_decode_steps": len(mixed),
+        "launches": launches,
+        "launches_single_version": (st.decode_dispatches - mixed_dispatches)
+        * cfg.n_layers,
+        "launches_mixed_version": mixed_dispatches * cfg.n_layers,
+        "host_ms_per_iter": iter_ms,
+        "host_ms_median": float(np.median(iter_ms)),
+        "decode_step_ms_single": 1e3 * float(np.median(single)),
+        "decode_step_ms_mixed": 1e3 * float(np.median(mixed)),
+        "swap_us": [1e6 * s for s in rec["swap_s"]],
+        "peak_mem_bytes": peak, "w_cap": out["loop"].reducer._w_cap,
+        "workers": [lg.n_workers for lg in out["logs"]],
+        "prefix_hits": st.prefix_hits,
+        "sim_tokens_per_s": st.tokens_per_s,
+        "sim_window_tokens_per_s": st.gen_tokens
+        / (st.makespan - reqs[0].arrival), "sim_p50_s": st.p50_latency,
+        "sim_p95_s": st.p95_latency, "sim_makespan_s": st.makespan,
+        "gen_tokens": st.gen_tokens, "replay": replay}
+    print(f"[train-serve] {ARCH} full width, {TS_ITERS} iterations of "
+          f"run_train_serve (lr {LM_LR}, publish every {TS_PUBLISH}), "
+          f"{st.n_requests} requests on the paged engine (ps "
+          f"{TS_SERVE['page_size']}, {TS_SERVE['max_batch']} x "
+          f"{TS_SERVE['max_seq']}, flash decode; arrivals at {TS_RATE} rps "
+          f"from {reqs[0].arrival:.2f} s of the fleet's clock, "
+          f"{TS_LEAD_S} s before the publish of step {TS_CENTER_STEP}): "
+          f"loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f}; {len(out['published'])} publishes "
+          f"{out['published']}, {st.swap_count} swaps, versions served "
+          f"{dict(sorted(st.versions_served.items()))}; decode steps "
+          f"{len(rec['decode'])} ({len(mixed)} mixed-version), flash_decode "
+          f"launches {launches} ({res['launches_single_version']} single-"
+          f"version, {res['launches_mixed_version']} mixed); host ms per "
+          f"training iteration median {res['host_ms_median']:.1f} (range "
+          f"{min(iter_ms):.1f}-{max(iter_ms):.1f}); wall ms per decode step "
+          f"median {res['decode_step_ms_single']:.2f} single-version, "
+          f"{res['decode_step_ms_mixed']:.2f} mixed; swap_params host us "
+          f"median {np.median(res['swap_us']):.1f} (max "
+          f"{max(res['swap_us']):.1f}); workers {res['workers']}, W_cap "
+          f"{res['w_cap']}; peak mem {peak / 2**30:.2f} GiB | {card}")
+    print(f"[train-serve] cost model's simulated clock (not the card's): "
+          f"{st.gen_tokens} tokens, {res['sim_window_tokens_per_s']:.1f} "
+          f"tok/s from the first arrival to the last completion "
+          f"({st.tokens_per_s:.1f} over the session from 0), p50 "
+          f"{st.p50_latency:.3f} s, p95 {st.p95_latency:.3f} s")
+    print(f"[train-serve] replayed {len(replay['replayed'])}/"
+          f"{replay['n_completions']} completions solo under their pinned "
+          f"versions (plain decode) in {replay['replay_s']:.1f} s, "
+          f"including rids {replay['mixed_rids']} that shared a decode step "
+          f"with another version: {replay['tokens_compared']} tokens equal, "
+          f"{len(replay['near_ties'])} near-ties {replay['near_ties']}")
+    del out, eng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_state_parts(loop) -> dict:
+    """The reducer's mutable tensors, for a bitwise comparison."""
+    red = loop.reducer
+    parts = {"flat": red.flat_params}
+    for i, x in enumerate(tree_leaves(red.opt_state)):
+        parts[f"optimizer state leaf {i}"] = x
+    for w, r in red._residuals.items():
+        parts[f"residual of {w}"] = r
+    return parts
+
+
+def first_difference(a_logs, b_logs, a_loop, b_loop) -> str:
+    """Where two card runs part: the first iteration whose events, wire
+    bytes or loss differ, else the first reducer tensor not bit-equal;
+    '' if none."""
+    for a, b in zip(a_logs, b_logs):
+        if (a.events, a.wire_bytes, a.per_worker_wire_bytes) != (
+                b.events, b.wire_bytes, b.per_worker_wire_bytes):
+            return f"iteration {a.step}: events or wire bytes"
+        if not (a.loss == b.loss or (a.loss != a.loss and b.loss != b.loss)):
+            return (f"iteration {a.step}: loss {a.loss!r} vs {b.loss!r} (the "
+                    f"workers' forward/backward on the card)")
+    pa, pb = train_state_parts(a_loop), train_state_parts(b_loop)
+    if sorted(pa) != sorted(pb):
+        return f"reducer state keys {sorted(pa)} vs {sorted(pb)}"
+    for k in pa:
+        if not same_bits(pa[k], pb[k]):
+            return f"the reducer's {k}"
+    return ""
+
+
+def phase_train_serve_small(card: str) -> dict:
+    from repro_torch.checkpoint.io import (TrainState, load_train_state,
+                                           save_train_state,
+                                           serving_params_from_train_state)
+    from repro_torch.serving.sampling import sample_tokens
+
+    small = get_config(ARCH).reduced()
+    reqs = ts_requests(small, TS_SMALL_LOAD["n"], TS_SMALL_SERVE["max_seq"],
+                       TS_SMALL_LOAD["rate"], TS_SMALL_LOAD["burst"])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = run_train_serve(
+            small, reqs, iterations=TS_SMALL_ITERS, publish_every=TS_PUBLISH,
+            T=0.5, seed=0, lr=LM_LR, decode_kernel="flash", device=dev,
+            **TS_SMALL_SERVE)
+    g, c = runs["cuda"], runs["cpu"]
+    rel = same_lm_logs(g["logs"], c["logs"], "[train-serve-small]")
+    gs, cs = g["stats"], c["stats"]
+    checks = {
+        "published": (g["published"], c["published"]),
+        "shed": ([(s.rid, s.reason, s.t) for s in gs.shed],
+                 [(s.rid, s.reason, s.t) for s in cs.shed]),
+        "versions_served": (gs.versions_served, cs.versions_served),
+        "swap_count": (gs.swap_count, cs.swap_count),
+        "completions (rid, version, finish, latency)": (
+            sorted((x.rid, x.version, x.finish, x.latency)
+                   for x in gs.completions),
+            sorted((x.rid, x.version, x.finish, x.latency)
+                   for x in cs.completions))}
+    for what, (a, b) in checks.items():
+        if a != b:
+            raise AssertionError(f"[train-serve-small] {what}: card {a} vs "
+                                 f"cpu {b}")
+    reasons = {s.reason for s in gs.shed}
+    if reasons != {"displaced", "deadline"} or len(gs.versions_served) < 2:
+        raise AssertionError(f"[train-serve-small] shed reasons {reasons}, "
+                             f"versions {gs.versions_served}")
+    gs_published = g["published"]
+    del runs, g, c
+
+    # -- the sampler on the same logits, card against CPU ----------------
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn(MAX_BATCH, 32768, generator=gen) * 3.0
+    logits[:, 7] = logits[:, 11] = logits.max() + 1.0   # tied maxima
+    rids = torch.arange(MAX_BATCH, dtype=torch.int64) * 7919
+    gidx = torch.arange(MAX_BATCH, dtype=torch.int64) % 5
+    sampled = {}
+    for T, k in ((0.8, 20), (0.8, 1), (0.8, 0), (0.0, 0)):
+        a = sample_tokens(logits.cuda(), rids.cuda(), gidx.cuda(),
+                          temperature=T, top_k=k, seed=0).cpu()
+        b = sample_tokens(logits, rids, gidx, temperature=T, top_k=k, seed=0)
+        sampled[(T, k)] = (a, b)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    for key in ((0.8, 20), (0.8, 1)):
+        a, b = sampled[key]
+        if not torch.equal(a, b):
+            raise AssertionError(f"sampler T={key[0]} top_k={key[1]}: card "
+                                 f"{a.tolist()} vs cpu {b.tolist()}")
+    if not torch.equal(sampled[(0.8, 1)][0], greedy) \
+            or not torch.equal(sampled[(0.0, 0)][0], greedy):
+        raise AssertionError("sampler: top_k=1 or temperature 0 is not the "
+                             "argmax")
+    full_equal = int((sampled[(0.8, 0)][0] == sampled[(0.8, 0)][1]).sum())
+
+    # -- TrainState: snapshot on the card, reload, resume ----------------
+    def fleet():
+        return build_training(small, seed=0, lr=LM_LR, device="cuda")
+
+    loop, cluster, _ = fleet()
+    straight = loop.run(RESUME_AT + RESUME_MORE)
+    loop_a, cluster_a, _ = fleet()
+    loop_a.run(RESUME_AT)
+    path = str(ROOT / "build" / "train_state.npz")
+    (ROOT / "build").mkdir(exist_ok=True)
+    save_train_state(path, TrainState.capture(loop_a, cluster_a))
+    state = load_train_state(path)
+    loop_b, cluster_b, template = fleet()
+    state.restore(loop_b, cluster_b)
+    resumed = loop_b.run(RESUME_MORE)
+    where = first_difference(straight[RESUME_AT:], resumed, loop, loop_b)
+    if where:
+        raise AssertionError(f"[train-serve-small] resumed TrainState parts "
+                             f"from the uninterrupted card run at {where}: "
+                             f"the card is not deterministic there")
+    # --from-snapshot: an engine seeded from the state serves what an
+    # engine built on the snapshot loop's own params serves
+    params, step = serving_params_from_train_state(state, template)
+    streams = []
+    for p, v in ((params, step), (loop_a.reducer.params, loop_a.step)):
+        eng = ServingEngine(p, small, serving=ServingConfig(
+            max_batch=2, max_seq=64, start_version=v), device="cuda")
+        st = eng.run_closed_loop([ServeRequest(
+            rid=0, prompt=reqs[0].prompt[:16], max_new=12)])
+        streams.append(st.completions[0].tokens.tolist())
+    if streams[0] != streams[1] or step != RESUME_AT:
+        raise AssertionError(f"--from-snapshot engine (step {step}) served "
+                             f"{streams[0]}, the loop's params {streams[1]}")
+    res = {"loss_rel": rel, "published": gs_published,
+           "shed": [(s.rid, s.reason, s.t) for s in gs.shed],
+           "versions_served": gs.versions_served,
+           "sampler_equal_top_k_0": full_equal,
+           "resume_losses": [lg.loss for lg in resumed],
+           "snapshot_stream": streams[0]}
+    print(f"[train-serve-small] {ARCH}.reduced() card vs CPU, "
+          f"{TS_SMALL_ITERS} iterations: training events and wire bytes "
+          f"equal (loss within {rel:.1e} rel), publishes, "
+          f"{len(res['shed'])} sheds {sorted(reasons)}, versions served "
+          f"{dict(sorted(gs.versions_served.items()))} and every "
+          f"completion's version, finish and latency equal; sampler card = "
+          f"CPU on {MAX_BATCH} rows x 32768 at T 0.8 top-k 20 and 1 (top-k "
+          f"1 and T 0 = argmax; full vocabulary equal on {full_equal}/"
+          f"{MAX_BATCH} rows); TrainState written after {RESUME_AT} "
+          f"iterations, reloaded and resumed {RESUME_MORE}: events, wire, "
+          f"losses and the reducer's flat buffer, optimizer state and "
+          f"residuals bit-equal to the uninterrupted run; --from-snapshot "
+          f"stream equal | {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # slice 3: the public kernel API at full width
 # ---------------------------------------------------------------------------
 # flash_attention: mlitb-lm-100m's prefill over the served engine's 16
@@ -1679,6 +2113,8 @@ def main() -> int:
     train = phase_train(card, fused["demo"]["ms"])
     lm = phase_reduce_lm(card)
     train_lm = phase_train_lm(card)
+    ts = phase_train_serve(card)
+    ts_small = phase_train_serve_small(card)
     main_api = phase_api(card)
     fa = phase_flash_attention(card, main_api)
     ssd = phase_ssd(card, main_api)
@@ -1694,7 +2130,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_decode/flash_decode.py:47",
          "design": "split-KV (32-key tiles across pages, 3-stage cp.async "
                    "ring) + combine kernel",
-         "launches": srv["launches"], "max_abs_err": kern["max_abs_err"],
+         "launches": ts["launches"],
+         "launches_single_version": ts["launches_single_version"],
+         "launches_mixed_version": ts["launches_mixed_version"],
+         "launches_serve": srv["launches"],
+         "max_abs_err": kern["max_abs_err"],
          "max_abs_err_bf16": kern["max_abs_err_bf16"],
          "max_row_rel_err_bf16": kern["max_row_rel_err_bf16"],
          "row_rel_tol_bf16": ROW_TOL_BF16,
@@ -1755,7 +2195,9 @@ def main() -> int:
          "build_s": {k: b.seconds for k, b in built.items()},
          "ptxas": {k: b.log for k, b in built.items()}, "kernel": kern,
          "fused_compress": fused, "serve": srv, "train": train,
-         "reduce_lm": lm, "train_lm": train_lm, "api_launches": launches, "flash_attention": fa,
+         "reduce_lm": lm, "train_lm": train_lm, "train_serve": ts,
+         "train_serve_small": ts_small, "api_launches": launches,
+         "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
          "total_s": time.perf_counter() - t_start},
         indent=1, default=str))

@@ -1,9 +1,10 @@
 """The paper's primary contribution: the MLitB elastic distributed-SGD
-runtime (event loop, scheduler, allocator, reducer, compression,
-guardrails, adaptive per-worker keep, simulation), ported from
-``repro.core``."""
+runtime (event loop, scheduler, allocator, reducer, closures,
+compression, guardrails, adaptive per-worker keep, simulation), ported
+from ``repro.core``."""
 from repro_torch.core.adaptive_frac import AdaptiveFracController  # noqa: F401
 from repro_torch.core.allocator import DataAllocator  # noqa: F401
+from repro_torch.core.closure import ResearchClosure  # noqa: F401
 from repro_torch.core.compression import (CompressedMessage,  # noqa: F401
                                           GradientCompressor,
                                           decompress_flat)

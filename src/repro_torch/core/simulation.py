@@ -21,6 +21,7 @@ same order as the JAX package's simulator, so the same seed gives the
 same latencies, deaths, faults and subset choices. ``state_dict`` /
 ``load_state_dict`` carry those streams for a bit-exact resume.
 
+``ServeCostModel`` is the serving clock's cost model;
 ``generate_requests`` (the serving workload) lives in
 ``repro_torch.serving.requests``. The hierarchy's pieces
 (``RegionalNetworkModel`` and region-scoped congestion, ROADMAP A5) are
@@ -461,3 +462,52 @@ def make_lm_problem(cfg, n_data: int = 512, seq_len: int = 16,
         return build_tree(paths, list(grads)), float(s.detach())
 
     return (X, y), grad_fn
+
+
+# ---------------------------------------------------------------------------
+# Serving cost model (the simulated serving clock)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ServeCostModel:
+    """Wall-time model for one serving step on a single accelerator (a
+    copy of the JAX package's without the speculative draft's charge,
+    ROADMAP C4; its seconds are the model's, not a card's).
+
+    Charges the PADDED shapes the engine actually executes: a prefill of
+    ``(batch_cap, prompt_cap)`` costs ``batch_cap * prompt_cap`` token
+    units (compute-bound), a decode step one unit per batch ROW
+    (memory-bound: every row reads the whole KV cache whether or not it
+    is live). ``step_overhead`` is the per-dispatch cost of a call plus
+    host-side sampling and bookkeeping.
+    """
+    step_overhead: float = 2e-3     # s per engine step (dispatch+sampling)
+    prefill_tok: float = 2e-5       # s per padded prefill token
+    decode_row: float = 1e-4        # s per padded decode row
+    swap_overhead: float = 1e-3     # s per param hot swap (host-side tree
+                                    # install, no device work)
+
+    def prefill_time(self, batch_cap: int, prompt_cap: int) -> float:
+        return self.step_overhead + self.prefill_tok * batch_cap * prompt_cap
+
+    def decode_time(self, batch: int) -> float:
+        return self.step_overhead + self.decode_row * batch
+
+    def decode_time_paged(self, page_reads: int, pages_per_row: int
+                          ) -> float:
+        """Decode charge for the PAGED engine: proportional to the KV
+        pages actually read. Calibrated so a full dense batch
+        (``max_batch * pages_per_row`` page reads) costs exactly
+        ``decode_time(max_batch)``."""
+        return self.step_overhead + self.decode_row * page_reads \
+            / max(pages_per_row, 1)
+
+    def decode_time_flash(self, kv_tokens: int, max_seq: int) -> float:
+        """Decode charge for the DENSE engine under the flash kernel:
+        proportional to the KV tokens actually read. Calibrated so a
+        saturated batch (``batch * max_seq`` KV tokens) costs exactly
+        ``decode_time(batch)``."""
+        return self.step_overhead + self.decode_row * kv_tokens \
+            / max(max_seq, 1)
+
+    def swap_time(self) -> float:
+        return self.swap_overhead

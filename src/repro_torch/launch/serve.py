@@ -13,7 +13,13 @@ from ``--seed``.
 ``--page-size`` switches the KV cache to the paged pool with prefix
 reuse; ``--shared-prefix N`` generates the matching system-prompt-heavy
 workload. ``--decode-kernel flash`` (the default) runs decode attention
-in the hand-written CUDA kernel; ``plain`` in PyTorch.
+in the hand-written CUDA kernel; ``plain`` in PyTorch. ``--temperature``
+/ ``--top-k`` sample instead of taking the argmax. ``--simulate`` times
+the run on the discrete-event ``ServeCostModel`` clock (the model's
+seconds, not the card's) instead of the wall clock, and ``--swap-every
+S`` then hot-swaps the params in as a new version every S simulated
+seconds (the same tree: it exercises in-flight version pinning, and the
+histogram shows which version each request was served under).
 """
 from __future__ import annotations
 
@@ -24,8 +30,10 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.kernels.runtime import resolve_device
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving import (PagingConfig, ServingConfig,
-                                     ServingEngine, generate_requests)
+    from repro_torch.core.simulation import ServeCostModel
+    from repro_torch.serving import (PagingConfig, SamplingConfig,
+                                     ServingConfig, ServingEngine,
+                                     generate_requests)
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="mlitb-lm-100m")
@@ -38,6 +46,9 @@ def main(argv=None):
     ap.add_argument("--prompt-cap", type=int, default=None,
                     help="largest prefill bucket; longer prompts prefill "
                          "in chunks (default: max_seq, no chunking)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; >0 samples with per-request draws")
+    ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=0,
                     help=">0 enables the PAGED KV cache with cross-request "
                          "prefix reuse; must divide max_seq. 0 = dense "
@@ -55,6 +66,11 @@ def main(argv=None):
                     help="decode attention: 'flash' = the CUDA flash-decode "
                          "kernel (its plain version on the CPU), 'plain' = "
                          "masked softmax in PyTorch")
+    ap.add_argument("--simulate", action="store_true",
+                    help="discrete-event clock instead of wall-clock")
+    ap.add_argument("--swap-every", type=float, default=0.0,
+                    help="with --simulate: hot-swap the params in as a "
+                         "new version every S simulated seconds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
@@ -97,11 +113,26 @@ def main(argv=None):
     engine = ServingEngine(params, cfg, serving=ServingConfig(
         max_batch=args.max_batch, max_seq=max_seq,
         prompt_cap=args.prompt_cap, decode_kernel=args.decode_kernel,
+        sampling=SamplingConfig(temperature=args.temperature,
+                                top_k=args.top_k, sample_seed=args.seed),
         paging=paging), device=device)
-    stats = engine.run_closed_loop(reqs)
+    if args.simulate:
+        swaps = []
+        if args.swap_every > 0:
+            horizon = max(r.arrival for r in reqs) + 4.0
+            t, ver = args.swap_every, 1
+            while t < horizon:
+                swaps.append((t, params, ver))
+                t += args.swap_every
+                ver += 1
+        stats = engine.run_simulated(reqs, ServeCostModel(), swaps=swaps)
+        mode = "simulated"
+    else:
+        stats = engine.run_closed_loop(reqs)
+        mode = "wall-clock"
     print(f"arch={cfg.name} requests={stats.n_requests} "
           f"max_batch={args.max_batch} max_seq={max_seq} device={device}")
-    print(f"wall-clock: {stats.gen_tokens} tokens in {stats.makespan:.2f}s "
+    print(f"{mode}: {stats.gen_tokens} tokens in {stats.makespan:.2f}s "
           f"({stats.tokens_per_s:.1f} tok/s), p50={stats.p50_latency:.3f}s "
           f"p95={stats.p95_latency:.3f}s")
     print(f"engine: {stats.engine_steps} steps, "
@@ -116,6 +147,12 @@ def main(argv=None):
     if engine.decode_kernel == "flash" and not engine.paged:
         print(f"flash decode: {stats.decode_kv_tokens} live KV tokens "
               f"streamed (vs {stats.decode_rows_total * max_seq} dense)")
+    if args.simulate:
+        from repro_torch.launch.train_serve import format_version_histogram
+        print(f"served version histogram ({stats.swap_count} in-flight "
+              f"swaps applied):")
+        for line in format_version_histogram(stats):
+            print(line)
     first = min(stats.completions, key=lambda c: c.rid)
     print("sample:", first.tokens[:12])
     if args.trace:

@@ -1,10 +1,15 @@
 """Serving configuration (PyTorch port of ``repro.serving.config``).
 
-The same grouped dataclasses and the same validation at construction.
-Settings this slice of the port does not serve yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them:
-temperature / top-k sampling (C1), backpressure and shedding (C2),
-speculative decoding (C4).
+The same grouped dataclasses and the same validation at construction:
+
+  SamplingConfig       temperature / top_k / sample_seed
+  BackpressureConfig   max_queue / shed_policy / admission_deadline
+  PagingConfig         page_size / n_pages / prefix_reuse
+
+``ServingEngine(params, cfg, serving=ServingConfig(...))`` is the entry
+point; ``ServingConfig.from_flat`` is the kwargs-shaped builder.
+Speculative decoding is not ported yet: a ``speculative`` setting raises
+``NotImplementedError`` naming ROADMAP C4.
 """
 from __future__ import annotations
 
@@ -16,34 +21,32 @@ from repro_torch.train.step import DECODE_KERNELS
 
 @dataclass(frozen=True)
 class SamplingConfig:
-    """Next-token choice: greedy only (``temperature == 0``)."""
+    """Next-token choice: greedy when ``temperature == 0``, else
+    temperature / top-k sampling whose draws are a pure function of
+    (``sample_seed``, request id, token index, the row's logits)."""
     temperature: float = 0.0
     top_k: int = 0
+    sample_seed: int = 0
 
     def __post_init__(self):
         if self.temperature < 0.0:
             raise ValueError(
                 f"temperature={self.temperature} must be >= 0")
-        if self.temperature > 0.0 or self.top_k > 0:
-            raise NotImplementedError(
-                f"temperature={self.temperature}, top_k={self.top_k}: the "
-                f"port samples greedily only (ROADMAP C1: temperature/top-k "
-                f"sampling)")
 
 
 @dataclass(frozen=True)
 class BackpressureConfig:
-    """Admission-queue bounds and shedding. Only the default (unbounded
-    queue, no deadline) is served; anything else is ROADMAP C2."""
+    """Admission-queue bounds and shedding."""
     max_queue: Optional[int] = None
+    shed_policy: str = "reject"
     admission_deadline: Optional[float] = None
 
     def __post_init__(self):
-        if self.max_queue is not None or self.admission_deadline is not None:
-            raise NotImplementedError(
-                f"max_queue={self.max_queue}, admission_deadline="
-                f"{self.admission_deadline}: the port does not shed load "
-                f"yet (ROADMAP C2: backpressure and shedding)")
+        if self.shed_policy not in ("reject", "drop_oldest"):
+            raise ValueError(f"shed_policy={self.shed_policy!r}: expected "
+                             f"'reject' or 'drop_oldest'")
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(f"max_queue={self.max_queue} must be >= 1")
 
 
 @dataclass(frozen=True)
@@ -62,11 +65,14 @@ class PagingConfig:
 
 @dataclass(frozen=True, eq=False)
 class ServingConfig:
-    """Everything ``ServingEngine`` needs beyond (params, model cfg)."""
+    """Everything ``ServingEngine`` needs beyond (params, model cfg).
+    ``start_version`` numbers the initial params (a training step when
+    they come from a checkpoint)."""
     max_batch: int
     max_seq: int
     prompt_bucket_min: int = 8
     prompt_cap: Optional[int] = None
+    start_version: int = 0
     decode_kernel: str = "flash"          # "flash" | "plain"
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     backpressure: BackpressureConfig = field(
@@ -99,3 +105,37 @@ class ServingConfig:
     def resolved_prompt_cap(self) -> int:
         return int(self.prompt_cap) if self.prompt_cap is not None \
             else int(self.max_seq)
+
+    @classmethod
+    def from_flat(cls, *, max_batch: int, max_seq: int,
+                  prompt_bucket_min: int = 8,
+                  prompt_cap: Optional[int] = None,
+                  temperature: float = 0.0, top_k: int = 0,
+                  sample_seed: int = 0, start_version: int = 0,
+                  max_queue: Optional[int] = None,
+                  shed_policy: str = "reject",
+                  admission_deadline: Optional[float] = None,
+                  page_size: Optional[int] = None,
+                  n_pages: Optional[int] = None,
+                  prefix_reuse: bool = True,
+                  decode_kernel: str = "flash",
+                  speculative: Optional[Any] = None) -> "ServingConfig":
+        """Build a grouped config from the flat kwargs."""
+        if page_size is not None:
+            paging = PagingConfig(page_size=int(page_size), n_pages=n_pages,
+                                  prefix_reuse=prefix_reuse)
+        else:
+            if n_pages is not None:
+                raise ValueError("n_pages requires page_size (paged mode)")
+            paging = None
+        return cls(
+            max_batch=int(max_batch), max_seq=int(max_seq),
+            prompt_bucket_min=int(prompt_bucket_min),
+            prompt_cap=prompt_cap, start_version=int(start_version),
+            decode_kernel=decode_kernel,
+            sampling=SamplingConfig(temperature=temperature, top_k=top_k,
+                                    sample_seed=sample_seed),
+            backpressure=BackpressureConfig(
+                max_queue=max_queue, shed_policy=shed_policy,
+                admission_deadline=admission_deadline),
+            paging=paging, speculative=speculative)

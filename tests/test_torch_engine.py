@@ -114,12 +114,16 @@ def test_config_validation_and_unported_settings():
                       paging=PagingConfig(page_size=16))
     with pytest.raises(ValueError, match="decode_kernel='xla'"):
         ServingConfig(max_batch=4, max_seq=32, decode_kernel="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-        SamplingConfig(temperature=0.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-        SamplingConfig(top_k=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP C2"):
-        BackpressureConfig(max_queue=4)
+    # sampling (C1) and backpressure (C2) are ported: the reference's
+    # validation, and the settings themselves construct
+    with pytest.raises(ValueError, match="temperature=-0.5"):
+        SamplingConfig(temperature=-0.5)
+    assert SamplingConfig(temperature=0.7, top_k=5).top_k == 5
+    with pytest.raises(ValueError, match="shed_policy='lifo'"):
+        BackpressureConfig(shed_policy="lifo")
+    with pytest.raises(ValueError, match="max_queue=0"):
+        BackpressureConfig(max_queue=0)
+    assert BackpressureConfig(max_queue=4).max_queue == 4
     with pytest.raises(NotImplementedError, match="ROADMAP C4"):
         ServingConfig(max_batch=4, max_seq=32, speculative=object())
     assert ServingConfig(max_batch=4, max_seq=32).decode_kernel == "flash"

@@ -113,14 +113,19 @@ def test_norms_rope_mlp_embed_unembed():
 
 def test_greedy_argmax_keeps_first_of_tied_maxima():
     """The engine's greedy pick on tied rows: first index, as
-    ``jnp.argmax`` (the JAX engine's sampler) takes it."""
-    from repro_torch.serving.engine import ServingEngine
+    ``jnp.argmax`` (the JAX engine's sampler) takes it. The engine
+    samples through ``sample_tokens``; ``top_k=1`` keeps the same one."""
+    from repro_torch.serving.sampling import sample_tokens
     rows = np.asarray([[0.5, 2.0, -1.0, 2.0, 2.0],
                        [3.0, 3.0, 3.0, 3.0, 3.0],
                        [-1.0, -2.0, -1.0, -3.0, -1.0]], np.float32)
-    got = ServingEngine._sample(_t(rows))
+    got = sample_tokens(_t(rows), None, None, temperature=0.0, top_k=0,
+                        seed=0)
     assert got.tolist() == np.asarray(jnp.argmax(rows, axis=-1)).tolist() \
         == [1, 0, 0]
+    top1 = sample_tokens(_t(rows), np.arange(3), np.zeros(3, np.int64),
+                         temperature=0.7, top_k=1, seed=0)
+    assert top1.tolist() == [1, 0, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -297,8 +297,11 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         TrainingConfig(hierarchy=object())
     from repro_torch.launch import train, train_serve
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train_serve.run_train_serve(train_serve.tiny_cfg(), [])
+    # the train->serve loop (A7) is ported; its speculative decoding is C4
+    with pytest.raises(NotImplementedError, match="ROADMAP C4"):
+        train_serve.run_train_serve(train_serve.tiny_cfg(), [],
+                                    iterations=1, device="cpu",
+                                    speculative=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         train.main(["--device", "cpu"])
     with pytest.raises(ValueError, match="deadline_quantile=1.5"):
