@@ -34,6 +34,21 @@ result):
    the plain decode path must give the same token streams (a differing
    token passes only where the plain path's top-2 logit gap is below
    1e-4, and that request is then not compared further);
+4b. serve-spec (slice 8) — the same engine and schedule with speculative
+   decoding: a full-width 1-layer draft from seed 2 proposes 4 tokens a
+   round (window 32) and one verify dispatch checks them; streams equal
+   the flash stream of phase 4 under the near-tie rule, flash_decode
+   launched 0 times (counters reset just before, read just after);
+   drafted / accepted / rounds, verify dispatches against phase 4's
+   decode steps, ms per round (the draft's and each verify dispatch's
+   beside) against phase 4's ms per decode step, tokens/s. Then a perfect draft (the served params,
+   window 64) on 16 requests of <= 60 tokens: accepted / drafted >= 0.95,
+   streams equal the plain engine's on the same schedule, fewer verify
+   dispatches than its decode steps;
+4c. oneshot (slice 8) — ``serve_batch`` (prefill + lockstep decode over a
+   kpos-tagged cache) on 8 prompts of 64 tokens, 32 generated: tokens
+   equal the dense-slot engine's (flash decode, 8 x 128) under the
+   near-tie rule; prefill ms and median ms per lockstep decode step;
 5. train   — the paper's elastic-SGD scenario
    (``repro_torch.launch.elastic_sgd``: 14 iterations, workers joining
    and leaving, the §3.5 conv net at full width, AdaGrad, the packed
@@ -84,7 +99,12 @@ result):
    the card after 4 iterations, reloaded and resumed for 4 more equal to
    the uninterrupted run bit for bit (else the phase names where they
    part), and an engine seeded from it serving what the loop's params
-   serve;
+   serve; then the loop again with speculative decoding (k 2, the served
+   arch at init from seed 2, a burst opening before the first publish)
+   on the card and the CPU: publishes, sheds, completion clocks and the
+   speculative counters equal, token streams equal under the near-tie
+   rule (each request against its pinned version), at least one step on
+   the card verifying two versions, no flash_decode launch;
 10. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
@@ -461,20 +481,51 @@ def schedule(cfg):
         shared_prefix=(3, 64, 0.7), seed=1)
 
 
-def serve(params, cfg, reqs, kernel: str):
+def timed_call(fn, rec: list):
+    """``fn`` recording its host seconds in ``rec``; the callers' calls
+    end in a device-to-host copy, so the clock sees the device's work."""
+    def call(*a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        rec.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def synced_call(fn, rec: list):
+    """``fn`` recording in ``rec`` the seconds from a device sync before
+    the call to one after it: the call's host issue and device work."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        rec.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def serve(params, cfg, reqs, kernel: str, speculative=None,
+          draft_s: list = None, verify_s: list = None):
+    """The paged engine of ``[serve]``; host seconds of each decode step
+    (or, speculative, each round: draft plus verify; ``draft_s`` and
+    ``verify_s`` take the draft's and each verify dispatch's seconds)."""
     eng = ServingEngine(params, cfg, serving=ServingConfig(
         max_batch=MAX_BATCH, max_seq=MAX_SEQ, decode_kernel=kernel,
-        paging=PagingConfig(page_size=PAGE, prefix_reuse=True)),
-        device="cuda")
+        paging=PagingConfig(page_size=PAGE, prefix_reuse=True),
+        speculative=speculative), device="cuda")
     step_s = []
-    inner = eng._step_decode
-
-    def timed(*a):
-        t0 = time.perf_counter()
-        out = inner(*a)               # ends in a device-to-host copy
-        step_s.append(time.perf_counter() - t0)
-        return out
-    eng._step_decode = timed
+    if speculative is None:
+        eng._step_decode = timed_call(eng._step_decode, step_s)
+    else:
+        eng._step_speculative = timed_call(eng._step_speculative, step_s)
+        if draft_s is not None:
+            draft = eng._draft
+            eng._draft = timed_call(lambda *a: draft(*a).cpu(), draft_s)
+        if verify_s is not None:
+            eng._programs = dataclasses.replace(
+                eng._programs,
+                verify=synced_call(eng._programs.verify, verify_s))
     return eng, eng.run_closed_loop(reqs), step_s
 
 
@@ -491,6 +542,40 @@ def top2_gap(params, cfg, seq) -> float:
                                  cache)
     top = torch.topk(logits[0, 0], 2).values
     return float(top[0] - top[1])
+
+
+def streams(stats) -> dict:
+    return {c.rid: c.tokens.tolist() for c in stats.completions}
+
+
+def near_tie_compare(params, cfg, prompts: dict, got: dict, want: dict,
+                     tag: str) -> tuple:
+    """``got`` against ``want`` (rid -> tokens), token by token: a
+    differing token passes only where the plain path's top-2 gap after
+    ``want``'s prefix is below GAP_TIE, and that request is then not
+    compared further. Returns (tokens compared, near-ties)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{tag} answered {sorted(got)}, expected "
+                             f"{sorted(want)}")
+    compared, ties = 0, []
+    for rid in sorted(want):
+        if len(got[rid]) != len(want[rid]):
+            raise AssertionError(f"{tag} request {rid}: {len(got[rid])} "
+                                 f"tokens, expected {len(want[rid])}")
+        for i, (a, b) in enumerate(zip(got[rid], want[rid])):
+            if a != b:
+                seq = list(prompts[rid]) + want[rid][:i]
+                gap = top2_gap(params, cfg, seq)
+                if gap >= GAP_TIE:
+                    raise AssertionError(
+                        f"{tag} request {rid} token {i}: {a} vs {b}, plain "
+                        f"top-2 gap {gap:.3e} >= {GAP_TIE}")
+                ties.append((rid, i, gap))
+                print(f"{tag} request {rid} step {i}: near-tie (top-2 gap "
+                      f"{gap:.2e}); not compared further")
+                break
+            compared += 1
+    return compared, ties
 
 
 def phase_serve(card: str) -> dict:
@@ -521,23 +606,10 @@ def phase_serve(card: str) -> dict:
     _, sp, step_p = serve(params, cfg, reqs, "plain")
     if fd_ops.COUNTER.count:
         raise AssertionError("the plain decode path launched the kernel")
-    got = {c.rid: c.tokens.tolist() for c in st.completions}
-    want = {c.rid: c.tokens.tolist() for c in sp.completions}
-    compared, ties = 0, []
-    for rid in sorted(want):
-        for i, (a, b) in enumerate(zip(got[rid], want[rid])):
-            if a != b:
-                seq = list(by_rid[rid].prompt) + want[rid][:i]
-                gap = top2_gap(params, cfg, seq)
-                if gap >= GAP_TIE:
-                    raise AssertionError(
-                        f"request {rid} token {i}: flash {a} vs plain {b}, "
-                        f"plain top-2 gap {gap:.3e} >= {GAP_TIE}")
-                ties.append((rid, i, gap))
-                print(f"[serve] request {rid} step {i}: near-tie (top-2 gap "
-                      f"{gap:.2e}); not compared further")
-                break
-            compared += 1
+    got = streams(st)
+    compared, ties = near_tie_compare(
+        params, cfg, {r.rid: r.prompt for r in reqs}, got, streams(sp),
+        "[serve] flash vs plain")
     res = {
         "requests": st.n_requests, "gen_tokens": st.gen_tokens,
         "tokens_per_s": st.tokens_per_s, "plain_tokens_per_s":
@@ -550,7 +622,8 @@ def phase_serve(card: str) -> dict:
         "peak_mem_bytes": peak, "prefix_hits": st.prefix_hits,
         "reused_tokens": st.reused_tokens, "pages_peak": st.pages_peak,
         "prefill_chunks": st.prefill_chunks, "tokens_compared": compared,
-        "near_ties": ties, "p50_s": st.p50_latency, "p95_s": st.p95_latency}
+        "near_ties": ties, "p50_s": st.p50_latency, "p95_s": st.p95_latency,
+        "streams": got}
     print(f"[serve] {ARCH} full width ({cfg.n_layers} layers, d "
           f"{cfg.d_model}), paged ps={PAGE} x {eng.n_pages} pages, "
           f"{st.n_requests} requests, {st.gen_tokens} tokens: flash "
@@ -561,6 +634,158 @@ def phase_serve(card: str) -> dict:
           f"({res['launches_per_step']:.0f}/step); prefix hits "
           f"{st.prefix_hits}; peak mem {peak / 2**20:.0f} MiB; streams equal "
           f"on {compared} tokens, {len(ties)} near-ties | {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# slice 8: speculative decoding and the single-shot path
+# ---------------------------------------------------------------------------
+# the launcher's draft: a 1-layer sibling of the served model from seed 2
+SPEC_K, SPEC_WINDOW = 4, 32
+# the perfect draft (the served params) sees the whole history: every
+# prompt + generation <= PERFECT_WINDOW - SPEC_K
+PERFECT_WINDOW, PERFECT_REQUESTS = 64, 16
+ONESHOT_B, ONESHOT_P, ONESHOT_GEN = 8, 64, 32
+
+
+def perfect_schedule(cfg):
+    return generate_requests(
+        PERFECT_REQUESTS, rate_rps=60.0, vocab_size=cfg.vocab_size,
+        prompt_rng=(4, 24), gen_short=(2, 12), gen_long=(24, 36), seed=3)
+
+
+def phase_serve_spec(card: str, srv: dict, serve_streams: dict) -> dict:
+    from repro_torch.serving import SpeculativeConfig
+    cfg = get_config(ARCH)
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    reqs = schedule(cfg)
+    prompts = {r.rid: r.prompt for r in reqs}
+    dcfg = dataclasses.replace(cfg, name=cfg.name + "-draft", n_layers=1)
+    spec = SpeculativeConfig(
+        draft_params=tf.init_params(dcfg, seed=2, device="cuda"),
+        draft_cfg=dcfg, k=SPEC_K, window=SPEC_WINDOW)
+    serve(params, cfg, [dataclasses.replace(r, max_new=8) for r in reqs[:2]],
+          "flash", spec)                                  # warm-up
+    # (a) the launcher's draft on [serve]'s schedule
+    runtime.reset_counters()
+    draft_s, verify_s = [], []
+    eng, st, round_s = serve(params, cfg, reqs, "flash", spec, draft_s,
+                             verify_s)
+    torch.cuda.synchronize()
+    launches = fd_ops.COUNTER.count
+    if launches:
+        raise AssertionError(f"[serve-spec] flash_decode launched "
+                             f"{launches} times in a speculative run")
+    compared, ties = near_tie_compare(params, cfg, prompts, streams(st),
+                                      serve_streams,
+                                      "[serve-spec] speculative vs [serve]")
+    if st.drafted == 0 or eng.verify_buckets_seen != [(MAX_BATCH, 8)]:
+        raise AssertionError(f"[serve-spec] drafted {st.drafted}, verify "
+                             f"buckets {eng.verify_buckets_seen}")
+    # (b) a perfect draft: the served params, whole history in the window
+    preqs = perfect_schedule(cfg)
+    perfect = SpeculativeConfig(draft_params=params, draft_cfg=cfg,
+                                k=SPEC_K, window=PERFECT_WINDOW)
+    _, pst, _ = serve(params, cfg, preqs, "flash", perfect)
+    _, pbase, _ = serve(params, cfg, preqs, "flash")
+    share = pst.accepted / max(pst.drafted, 1)
+    pcompared, pties = near_tie_compare(
+        params, cfg, {r.rid: r.prompt for r in preqs}, streams(pst),
+        streams(pbase), "[serve-spec] perfect draft vs plain decode")
+    if share < 0.95 or pst.decode_dispatches >= pbase.decode_dispatches:
+        raise AssertionError(
+            f"[serve-spec] perfect draft: accepted {pst.accepted}/"
+            f"{pst.drafted}, {pst.decode_dispatches} verify dispatches "
+            f"against {pbase.decode_dispatches} decode steps")
+    res = {"drafted": st.drafted, "accepted": st.accepted,
+           "rounds": st.spec_rounds, "verify_dispatches": st.decode_dispatches,
+           "serve_decode_steps": srv["decode_steps"],
+           "round_ms": 1e3 * float(np.mean(round_s)),
+           "round_ms_median": 1e3 * float(np.median(round_s)),
+           "draft_ms_median": 1e3 * float(np.median(draft_s)),
+           "verify_ms_median": 1e3 * float(np.median(verify_s)),
+           "verify_ms": 1e3 * float(np.mean(verify_s)),
+           "serve_decode_step_ms": srv["decode_step_ms"],
+           "tokens_per_s": st.tokens_per_s,
+           "serve_tokens_per_s": srv["tokens_per_s"],
+           "flash_decode_launches": launches, "tokens_compared": compared,
+           "near_ties": ties, "perfect_drafted": pst.drafted,
+           "perfect_accepted": pst.accepted, "perfect_share": share,
+           "perfect_verify_dispatches": pst.decode_dispatches,
+           "perfect_decode_steps": pbase.decode_dispatches,
+           "perfect_tokens_per_s": pst.tokens_per_s,
+           "perfect_plain_tokens_per_s": pbase.tokens_per_s,
+           "perfect_compared": pcompared, "perfect_near_ties": pties}
+    print(f"[serve-spec] {ARCH} full width, paged ps={PAGE}, {st.n_requests} "
+          f"requests, 1-layer draft (seed 2) k {SPEC_K} window "
+          f"{SPEC_WINDOW}: drafted {st.drafted}, accepted {st.accepted}, "
+          f"{st.spec_rounds} row rounds, {st.decode_dispatches} verify "
+          f"dispatches against [serve]'s {srv['decode_steps']} decode steps; "
+          f"{res['round_ms']:.2f} ms per round (median "
+          f"{res['round_ms_median']:.2f}; draft {res['draft_ms_median']:.2f}"
+          f", verify dispatch {res['verify_ms_median']:.2f}, medians)"
+          f" against [serve]'s {srv['decode_step_ms']:.2f} ms per decode "
+          f"step; {st.tokens_per_s:.1f} tok/s (serve "
+          f"{srv['tokens_per_s']:.1f}); flash_decode launches {launches}; "
+          f"streams equal [serve]'s on {compared} tokens, {len(ties)} "
+          f"near-ties | {card}")
+    print(f"[serve-spec] perfect draft (the served params, window "
+          f"{PERFECT_WINDOW}), {len(preqs)} requests of <= 60 tokens: "
+          f"accepted {pst.accepted}/{pst.drafted} ({100 * share:.1f}%), "
+          f"{pst.decode_dispatches} verify dispatches against "
+          f"{pbase.decode_dispatches} decode steps; {pst.tokens_per_s:.1f} "
+          f"tok/s against {pbase.tokens_per_s:.1f}; streams equal on "
+          f"{pcompared} tokens, {len(pties)} near-ties | {card}")
+    return res
+
+
+def phase_oneshot(card: str) -> dict:
+    import repro_torch.launch.serve as serve_mod
+    cfg = get_config(ARCH)
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(4)
+    prompts = rng.randint(0, cfg.vocab_size,
+                          size=(ONESHOT_B, ONESHOT_P)).astype(np.int32)
+    serve_mod.serve_batch(params, cfg, prompts[:2], 2)     # warm-up
+    times = {"prefill": [], "decode": []}
+    prefill, decode_step = serve_mod.tf.prefill, serve_mod.tf.decode_step
+    serve_mod.tf.prefill = synced_call(prefill, times["prefill"])
+    serve_mod.tf.decode_step = synced_call(decode_step, times["decode"])
+    try:
+        t0 = time.perf_counter()
+        out = serve_mod.serve_batch(params, cfg, prompts, ONESHOT_GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serve_mod.tf.prefill, serve_mod.tf.decode_step = prefill, decode_step
+    if out.shape != (ONESHOT_B, ONESHOT_GEN) \
+            or out.device != params["embed"].device \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"[oneshot] serve_batch gave {out.shape} on "
+                             f"{out.device}")
+    eng = ServingEngine(params, cfg, serving=ServingConfig(
+        max_batch=ONESHOT_B, max_seq=128, decode_kernel="flash"),
+        device="cuda")
+    st = eng.run_closed_loop([ServeRequest(rid=i, prompt=prompts[i],
+                                           max_new=ONESHOT_GEN)
+                              for i in range(ONESHOT_B)])
+    got = {i: out[i].tolist() for i in range(ONESHOT_B)}
+    compared, ties = near_tie_compare(
+        params, cfg, dict(enumerate(prompts)), got, streams(st),
+        "[oneshot] serve_batch vs engine")
+    res = {"prefill_ms": 1e3 * times["prefill"][0],
+           "decode_ms_median": 1e3 * float(np.median(times["decode"])),
+           "decode_steps": len(times["decode"]), "wall_s": wall,
+           "tokens_per_s": ONESHOT_B * ONESHOT_GEN / wall,
+           "tokens_compared": compared, "near_ties": ties}
+    print(f"[oneshot] {ARCH} full width, serve_batch {ONESHOT_B} x "
+          f"{ONESHOT_P} prompt tokens, {ONESHOT_GEN} generated: prefill "
+          f"{res['prefill_ms']:.2f} ms, lockstep decode "
+          f"{res['decode_ms_median']:.2f} ms median over "
+          f"{len(times['decode'])} steps, {wall:.2f} s in all "
+          f"({res['tokens_per_s']:.1f} tok/s); tokens equal the dense "
+          f"engine's (flash decode, {ONESHOT_B} x 128) on {compared}, "
+          f"{len(ties)} near-ties | {card}")
     return res
 
 
@@ -1216,6 +1441,10 @@ TS_SMALL_SERVE = dict(max_batch=2, max_seq=64, prompt_cap=16, page_size=8,
                       max_queue=4, shed_policy="drop_oldest",
                       admission_deadline=0.04)
 TS_SMALL_LOAD = dict(n=64, rate=8.0, burst=(1.5, 0.8, 12.0))
+# the speculative run's burst opens just before the first publish (1.37
+# s on the fleet's clock), so rows of version 0 are still in flight when
+# rows of version 2 are admitted: some rounds verify both versions
+TS_SPEC_BURST = (1.3, 0.8, 12.0)
 RESUME_AT, RESUME_MORE = 4, 4
 
 
@@ -1519,6 +1748,89 @@ def phase_train_serve_small(card: str) -> dict:
     gs_published = g["published"]
     del runs, g, c
 
+    # -- speculative decoding in the live loop, card against CPU ---------
+    from repro_torch.serving import SpeculativeConfig
+    t_spec = time.perf_counter()
+    spec_reqs = ts_requests(small, TS_SMALL_LOAD["n"],
+                            TS_SMALL_SERVE["max_seq"], TS_SMALL_LOAD["rate"],
+                            TS_SPEC_BURST)
+    spec_runs = {}
+    # versions verified in each engine step on the card: > 1 is a round
+    # whose rows of different versions went through one group-masked
+    # verify dispatch each
+    step_versions = []
+    engine_step = ServingEngine.step
+
+    def recorded_step(self, *a, **kw):
+        rep = engine_step(self, *a, **kw)
+        step_versions.append(len(rep.verify_shapes))
+        return rep
+    for dev in ("cuda", "cpu"):
+        runtime.reset_counters()
+        if dev == "cuda":
+            ServingEngine.step = recorded_step
+        try:
+            out = run_train_serve(
+                small, spec_reqs, iterations=TS_SMALL_ITERS,
+                publish_every=TS_PUBLISH, T=0.5, seed=0, lr=LM_LR,
+                decode_kernel="flash", device=dev,
+                speculative=SpeculativeConfig(
+                    draft_params=tf.init_params(small, seed=2, device=dev),
+                    draft_cfg=small, k=2, window=32), **TS_SMALL_SERVE)
+        finally:
+            ServingEngine.step = engine_step
+        if dev == "cuda":
+            card_versions = out["versions"]
+        st = out["stats"]
+        spec_runs[dev] = {
+            "published": out["published"],
+            "completions (rid, version, finish, latency)": sorted(
+                (x.rid, x.version, x.finish, x.latency)
+                for x in st.completions),
+            "shed": [(x.rid, x.reason, x.t) for x in st.shed],
+            "drafted, accepted, rounds, verify dispatches": (
+                st.drafted, st.accepted, st.spec_rounds,
+                st.decode_dispatches),
+            "tokens": {x.rid: x.tokens.tolist() for x in st.completions}}
+        if dev == "cuda" and fd_ops.COUNTER.count:
+            raise AssertionError("[train-serve-small] the speculative loop "
+                                 "launched flash_decode")
+    tok_eq = sum(spec_runs["cuda"]["tokens"][r] == t
+                 for r, t in spec_runs["cpu"]["tokens"].items())
+    for what in spec_runs["cuda"]:
+        a, b = spec_runs["cuda"][what], spec_runs["cpu"][what]
+        if what != "tokens" and a != b:
+            raise AssertionError(f"[train-serve-small] speculative {what}: "
+                                 f"card {a} vs cpu {b}")
+    # the streams, request by request under the version each was pinned
+    # to (completions' versions are equal above): the card's verify must
+    # give the CPU's tokens, a near-tie of that version's plain path apart
+    spec_ties, spec_compared = [], 0
+    by_version = {}
+    for rid, ver, _, _ in spec_runs["cpu"]["completions (rid, version, "
+                                           "finish, latency)"]:
+        by_version.setdefault(ver, []).append(rid)
+    prompts_small = {r.rid: r.prompt for r in spec_reqs}
+    for ver, rids in sorted(by_version.items()):
+        n, t = near_tie_compare(
+            card_versions[ver], small, prompts_small,
+            {r: spec_runs["cuda"]["tokens"][r] for r in rids},
+            {r: spec_runs["cpu"]["tokens"][r] for r in rids},
+            f"[train-serve-small] speculative, version {ver}, card vs cpu")
+        spec_compared += n
+        spec_ties += t
+    spec_small = spec_runs["cuda"]["drafted, accepted, rounds, "
+                                   "verify dispatches"]
+    mixed_rounds = sum(v > 1 for v in step_versions)
+    if spec_small[0] == 0 or not spec_runs["cuda"]["published"] \
+            or mixed_rounds == 0:
+        raise AssertionError(f"[train-serve-small] speculative run drafted "
+                             f"{spec_small}, {mixed_rounds} steps verified "
+                             f"more than one version")
+    n_spec = len(spec_runs["cpu"]["tokens"])
+    del spec_runs, card_versions
+    spec_s = time.perf_counter() - t_spec
+
     # -- the sampler on the same logits, card against CPU ----------------
     gen = torch.Generator().manual_seed(5)
     logits = torch.randn(MAX_BATCH, 32768, generator=gen) * 3.0
@@ -1581,7 +1893,13 @@ def phase_train_serve_small(card: str) -> dict:
            "versions_served": gs.versions_served,
            "sampler_equal_top_k_0": full_equal,
            "resume_losses": [lg.loss for lg in resumed],
-           "snapshot_stream": streams[0]}
+           "snapshot_stream": streams[0],
+           "speculative": {"drafted_accepted_rounds_verify": spec_small,
+                           "tokens_equal": tok_eq, "completions": n_spec,
+                           "tokens_compared": spec_compared,
+                           "near_ties": spec_ties,
+                           "mixed_version_steps": mixed_rounds,
+                           "seconds": spec_s}}
     print(f"[train-serve-small] {ARCH}.reduced() card vs CPU, "
           f"{TS_SMALL_ITERS} iterations: training events and wire bytes "
           f"equal (loss within {rel:.1e} rel), publishes, "
@@ -1595,6 +1913,14 @@ def phase_train_serve_small(card: str) -> dict:
           f"losses and the reducer's flat buffer, optimizer state and "
           f"residuals bit-equal to the uninterrupted run; --from-snapshot "
           f"stream equal | {card}")
+    print(f"[train-serve-small] speculative k 2 (the served arch at init, "
+          f"seed 2) card vs CPU: publishes, sheds, every completion's "
+          f"version, finish and latency equal; drafted, accepted, rounds, "
+          f"verify dispatches {spec_small} equal; {mixed_rounds} steps "
+          f"verified two or more versions; token streams equal on "
+          f"{tok_eq}/{n_spec} ({spec_compared} tokens compared, "
+          f"{len(spec_ties)} near-ties); flash_decode launched 0 times "
+          f"| {card}")
     return res
 
 
@@ -2110,6 +2436,12 @@ def main() -> int:
     kern = phase_kernels(card)
     fused = phase_fused_kernel(card)
     srv = phase_serve(card)
+    t8 = time.perf_counter()
+    spec = phase_serve_spec(card, srv, srv.pop("streams"))
+    spec["seconds"] = time.perf_counter() - t8
+    t8 = time.perf_counter()
+    oneshot = phase_oneshot(card)
+    oneshot["seconds"] = time.perf_counter() - t8
     train = phase_train(card, fused["demo"]["ms"])
     lm = phase_reduce_lm(card)
     train_lm = phase_train_lm(card)
@@ -2194,14 +2526,19 @@ def main() -> int:
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": {k: b.seconds for k, b in built.items()},
          "ptxas": {k: b.log for k, b in built.items()}, "kernel": kern,
-         "fused_compress": fused, "serve": srv, "train": train,
+         "fused_compress": fused, "serve": srv, "serve_spec": spec,
+         "oneshot": oneshot, "train": train,
          "reduce_lm": lm, "train_lm": train_lm, "train_serve": ts,
          "train_serve_small": ts_small, "api_launches": launches,
          "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
          "total_s": time.perf_counter() - t_start},
         indent=1, default=str))
-    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    slice8 = (spec["seconds"], oneshot["seconds"],
+              ts_small["speculative"]["seconds"])
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; slice 8's phases "
+          f"{sum(slice8):.1f} s (serve-spec {slice8[0]:.1f}, oneshot "
+          f"{slice8[1]:.1f}, speculative train-serve-small {slice8[2]:.1f})")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

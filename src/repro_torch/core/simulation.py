@@ -470,8 +470,8 @@ def make_lm_problem(cfg, n_data: int = 512, seq_len: int = 16,
 @dataclass(frozen=True)
 class ServeCostModel:
     """Wall-time model for one serving step on a single accelerator (a
-    copy of the JAX package's without the speculative draft's charge,
-    ROADMAP C4; its seconds are the model's, not a card's).
+    copy of the JAX package's; its seconds are the model's, not a
+    card's).
 
     Charges the PADDED shapes the engine actually executes: a prefill of
     ``(batch_cap, prompt_cap)`` costs ``batch_cap * prompt_cap`` token
@@ -485,6 +485,9 @@ class ServeCostModel:
     decode_row: float = 1e-4        # s per padded decode row
     swap_overhead: float = 1e-3     # s per param hot swap (host-side tree
                                     # install, no device work)
+    draft_tok: float = 1e-6         # s per draft-window token per forward
+                                    # (the speculative draft LM is tiny and
+                                    # cacheless: k forwards over (B, window))
 
     def prefill_time(self, batch_cap: int, prompt_cap: int) -> float:
         return self.step_overhead + self.prefill_tok * batch_cap * prompt_cap
@@ -508,6 +511,11 @@ class ServeCostModel:
         ``decode_time(batch)``."""
         return self.step_overhead + self.decode_row * kv_tokens \
             / max(max_seq, 1)
+
+    def draft_time(self, k: int, batch: int, window: int) -> float:
+        """Charge for ONE speculative draft dispatch: k cacheless
+        forwards of the draft LM over a (batch, window) buffer."""
+        return self.step_overhead + self.draft_tok * k * batch * window
 
     def swap_time(self) -> float:
         return self.swap_overhead

@@ -20,24 +20,76 @@ seconds, not the card's) instead of the wall clock, and ``--swap-every
 S`` then hot-swaps the params in as a new version every S simulated
 seconds (the same tree: it exercises in-flight version pinning, and the
 histogram shows which version each request was served under).
+``--speculative K`` drafts K tokens a round with a 1-layer sibling of
+the served model (random, from ``--seed + 2``) and checks them in one
+verify dispatch; the stream stays the exact greedy one, and no
+flash-decode kernel runs. ``--closure PATH`` serves the weights of a
+research closure (written by either package) instead of random ones.
+
+``serve_batch`` is the single-shot reference path: one fixed batch,
+prefilled once and decoded in lockstep, on the device its params lie on.
 """
 from __future__ import annotations
 
 import argparse
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.runtime import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """(B,S,V) logits -> (B,1) int32 argmax of the last column."""
+    return torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+
+
+def serve_batch(params, cfg: ArchConfig, prompts, gen: int, *,
+                device: Optional[DeviceLike] = None) -> torch.Tensor:
+    """REFERENCE single-shot path: one fixed-shape batch, every row the
+    same prompt length, prefilled once and decoded in lockstep for
+    ``gen`` steps. prompts: (B, P) int (array, or tensor on any device)
+    -> generated (B, gen) int32, on the device the params lie on
+    (``device``, when given, must name it; ``"cuda"`` raises without
+    CUDA)."""
+    dev = resolve_device(params["embed"].device if device is None
+                         else device)
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"params lie on {params['embed'].device}, "
+                         f"serve_batch was asked for {dev}")
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"serve_batch for arch_type={cfg.arch_type!r} is ROADMAP C7")
+    prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    P = prompts.shape[1]
+    with torch.inference_mode():
+        logits, cache = tf.prefill(params, cfg, prompts)
+        tok = greedy_sample(logits)
+        out = [tok]
+        for t in range(gen - 1):
+            logits, cache = tf.decode_step(params, cfg, tok, P + t, cache)
+            tok = greedy_sample(logits)
+            out.append(tok)
+    return torch.cat(out, dim=1)
 
 
 def main(argv=None):
+    import dataclasses
+
     from repro_torch.configs import get_config
-    from repro_torch.kernels.runtime import resolve_device
     from repro_torch.models.transformer import init_params
     from repro_torch.core.simulation import ServeCostModel
     from repro_torch.serving import (PagingConfig, SamplingConfig,
                                      ServingConfig, ServingEngine,
-                                     generate_requests)
+                                     SpeculativeConfig, generate_requests)
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="mlitb-lm-100m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--closure", default=None, metavar="PATH",
+                    help="serve the params of this research closure")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--rate", type=float, default=60.0,
                     help="open-loop arrival rate (requests/s)")
@@ -66,6 +118,14 @@ def main(argv=None):
                     help="decode attention: 'flash' = the CUDA flash-decode "
                          "kernel (its plain version on the CPU), 'plain' = "
                          "masked softmax in PyTorch")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help=">0 enables speculative decoding: a 1-layer "
+                         "draft drafts K tokens per round and the served "
+                         "model verifies them in one chunk dispatch "
+                         "(greedy only)")
+    ap.add_argument("--draft-window", type=int, default=32,
+                    help="with --speculative: the draft LM's cacheless "
+                         "context window")
     ap.add_argument("--simulate", action="store_true",
                     help="discrete-event clock instead of wall-clock")
     ap.add_argument("--swap-every", type=float, default=0.0,
@@ -80,10 +140,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    params = init_params(cfg, seed=args.seed, device=device)
+    if args.closure:
+        from repro_torch.checkpoint.convert import params_from_jax
+        from repro_torch.core.closure import ResearchClosure
+        clo = ResearchClosure.load(args.closure)
+        cfg = clo.config
+        if cfg.arch_type != "dense":
+            raise NotImplementedError(
+                f"serving a {cfg.arch_type!r} closure is ROADMAP C7")
+        params = params_from_jax(clo.params, cfg, device=device)
+        print(f"loaded closure {args.closure} (arch={clo.arch}, "
+              f"step={clo.step})")
+    else:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        params = init_params(cfg, seed=args.seed, device=device)
 
     max_seq = args.max_seq
     if cfg.sliding_window:
@@ -105,6 +177,17 @@ def main(argv=None):
         gen_long=(g_long_lo, g_long_hi),
         shared_prefix=shared,
         seed=args.seed + 1)
+    speculative = None
+    if args.speculative > 0:
+        # a 1-layer sibling of the served model, freshly drawn: draft
+        # quality moves only the acceptance rate, never the stream
+        draft_cfg = dataclasses.replace(cfg, name=cfg.name + "-draft",
+                                        n_layers=1)
+        speculative = SpeculativeConfig(
+            draft_params=init_params(draft_cfg, seed=args.seed + 2,
+                                     device=device),
+            draft_cfg=draft_cfg, k=args.speculative,
+            window=args.draft_window)
     paging = None
     if args.page_size:
         paging = PagingConfig(page_size=args.page_size,
@@ -115,7 +198,7 @@ def main(argv=None):
         prompt_cap=args.prompt_cap, decode_kernel=args.decode_kernel,
         sampling=SamplingConfig(temperature=args.temperature,
                                 top_k=args.top_k, sample_seed=args.seed),
-        paging=paging), device=device)
+        paging=paging, speculative=speculative), device=device)
     if args.simulate:
         swaps = []
         if args.swap_every > 0:
@@ -144,9 +227,16 @@ def main(argv=None):
               f"peak resident {stats.pages_peak}, prefix hits "
               f"{stats.prefix_hits} ({stats.reused_tokens} tokens never "
               f"re-prefilled), {engine.trie_pages} pages cached for reuse")
-    if engine.decode_kernel == "flash" and not engine.paged:
+    if engine.decode_kernel == "flash" and not engine.paged \
+            and speculative is None:
         print(f"flash decode: {stats.decode_kv_tokens} live KV tokens "
               f"streamed (vs {stats.decode_rows_total * max_seq} dense)")
+    if speculative is not None:
+        rate = stats.accepted / max(stats.drafted, 1)
+        print(f"speculative: drafted {stats.drafted}, accepted "
+              f"{stats.accepted} ({100 * rate:.0f}%) over "
+              f"{stats.spec_rounds} rounds, verify buckets "
+              f"{engine.verify_buckets_seen}")
     if args.simulate:
         from repro_torch.launch.train_serve import format_version_histogram
         print(f"served version histogram ({stats.swap_count} in-flight "
@@ -163,7 +253,9 @@ def main(argv=None):
 def print_trace(engine, reqs, device) -> None:
     """Serve ``reqs`` again (warm) under ``torch.profiler``; print the
     ops with the most self time on the device (or the CPU, without a
-    card) and the device's busy share of the wall time."""
+    card), the ops with the most host time, the speculative round's
+    ``spec.draft`` / ``spec.verify`` spans, and the device's busy share
+    of the wall time."""
     import time
 
     import torch
@@ -182,10 +274,19 @@ def print_trace(engine, reqs, device) -> None:
     key = "self_device_time_total" if device.type == "cuda" \
         else "self_cpu_time_total"
     print(ka.table(sort_by=key, row_limit=15))
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=10))
+    for e in ka:
+        if e.key.startswith("spec.") \
+                and e.device_type == torch.autograd.DeviceType.CPU:
+            print(f"span {e.key}: {e.count} calls, host "
+                  f"{e.cpu_time_total / 1e3 / e.count:.2f} ms a call, "
+                  f"device {e.device_time_total / 1e3 / e.count:.2f} ms a "
+                  f"call (its kernels)")
     # device busy time: the device-side (kernel / memcpy) events only;
     # the aten ops that launched them carry the same time again
     busy_us = sum(e.self_device_time_total for e in ka
-                  if e.device_type != torch.autograd.DeviceType.CPU)
+                  if e.device_type != torch.autograd.DeviceType.CPU
+                  and not getattr(e, "is_user_annotation", False))
     steps = max(stats.decode_dispatches, 1)
     print(f"trace: wall {wall:.3f}s for {stats.engine_steps} steps "
           f"({stats.decode_dispatches} decode); device busy "

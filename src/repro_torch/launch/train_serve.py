@@ -30,8 +30,12 @@ simulator, every worker computing real next-token gradients on the
 problem's device, the fused top-k compressed reduce with AdaGrad, and
 deadline partial participation.
 
+``--speculative K`` serves with a K-token draft: the served arch at
+init, so acceptance is low, while the output stays the exact greedy
+stream.
+
 Not ported yet: the two-tier hierarchy (``TrainingConfig(hierarchy=)``,
-ROADMAP A5) and speculative decoding (``--speculative``, ROADMAP C4).
+ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -336,7 +340,12 @@ def main(argv=None):
                          "kernel (its plain version on the CPU), 'plain' = "
                          "masked softmax in PyTorch")
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
-                    help="speculative decoding (not ported: ROADMAP C4)")
+                    help=">0: speculative decoding with a K-token draft "
+                         "(the draft is the SERVED arch at init — "
+                         "acceptance is low until training improves it; "
+                         "output stays the exact greedy stream)")
+    ap.add_argument("--draft-window", type=int, default=32,
+                    help="with --speculative: draft context window")
     ap.add_argument("--snapshot-out", default=None,
                     help="save the final TrainState here")
     ap.add_argument("--from-snapshot", default=None,
@@ -346,10 +355,6 @@ def main(argv=None):
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.speculative > 0:
-        raise NotImplementedError(
-            "--speculative: speculative decoding is not ported yet "
-            "(ROADMAP C4)")
     device = resolve_device(args.device)
     if args.arch:
         cfg = get_config(args.arch)
@@ -381,6 +386,14 @@ def main(argv=None):
         print(f"seeded engine from {args.from_snapshot} "
               f"(training step {start_version})")
 
+    speculative = None
+    if args.speculative > 0:
+        from repro_torch.serving import SpeculativeConfig
+        speculative = SpeculativeConfig(
+            draft_params=tf.init_params(cfg, seed=args.seed + 2,
+                                        device=device),
+            draft_cfg=cfg, k=args.speculative, window=args.draft_window)
+
     guardrails = canary = None
     if args.guardrails:
         from repro_torch.core.guardrails import (CanaryGate,
@@ -404,7 +417,8 @@ def main(argv=None):
         max_queue=args.max_queue, shed_policy=args.shed_policy,
         admission_deadline=args.admission_deadline,
         page_size=args.page_size or None, n_pages=args.pages or None,
-        decode_kernel=args.decode_kernel, device=device)
+        decode_kernel=args.decode_kernel, speculative=speculative,
+        device=device)
 
     logs, stats, engine = out["logs"], out["stats"], out["engine"]
     losses = [lg.loss for lg in logs if lg.loss == lg.loss]
@@ -424,6 +438,9 @@ def main(argv=None):
         print(f"paged: {engine.n_pages} pages x {engine.page_size} tok, "
               f"peak resident {stats.pages_peak}, prefix hits "
               f"{stats.prefix_hits} ({stats.reused_tokens} reused tokens)")
+    if speculative is not None:
+        print(f"speculative: drafted {stats.drafted}, accepted "
+              f"{stats.accepted} over {stats.spec_rounds} rounds")
     if guardrails is not None:
         print(f"guardrails: {guardrails.n_quarantined} quarantined, "
               f"{guardrails.n_rollbacks} rollbacks, "

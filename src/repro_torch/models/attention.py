@@ -2,7 +2,9 @@
 serving engine's KV caches.
 
 The PyTorch counterpart of ``repro.models.attention`` (full-sequence
-self-attention and the functions the continuous-batching engine runs).
+self-attention, the single-shot prefill / lockstep decode over a
+``kpos``-tagged cache, and the functions the continuous-batching engine
+runs).
 Layouts are the JAX package's:
 
   q projections    (d, H, hd)        H = query heads
@@ -26,6 +28,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.layers import (apply_rope, as_dtype, f32,
                                        rmsnorm, rope_tables, rotate)
 
@@ -148,6 +151,76 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     mask = make_mask(positions, positions, causal, window) \
         if (causal or window) else None
     return _out_proj(p, grouped_attend(q, k, v, mask))
+
+
+# ---------------------------------------------------------------------------
+# Single-shot KV-cache path (prefill + lockstep decode)
+# ---------------------------------------------------------------------------
+def init_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
+               dtype=torch.bfloat16, device: DeviceLike = "cuda") -> Params:
+    """One layer's decode cache on ``device`` (default ``"cuda"``; raises
+    without CUDA unless given ``"cpu"``): k/v ``(B, T, K, hd)`` and
+    ``kpos`` (T,), the absolute position each slot holds (``-1``: empty)."""
+    dev = resolve_device(device)
+    return {
+        "k": torch.zeros((batch, cache_len, n_kv, head_dim), dtype=dtype,
+                         device=dev),
+        "v": torch.zeros((batch, cache_len, n_kv, head_dim), dtype=dtype,
+                         device=dev),
+        "kpos": torch.full((cache_len,), -1, dtype=torch.int32, device=dev),
+    }
+
+
+def attention_prefill(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                      cache: Params, window: int = 0, use_rope: bool = True,
+                      rope_theta: float = 10000.0
+                      ) -> Tuple[torch.Tensor, Params]:
+    """Full causal forward over x (B,S,d) writing post-RoPE k/v into the
+    cache's first S slots (in place). ``positions`` (S,) or (B,S) start
+    at 0; S must not exceed the cache length."""
+    q, k, v = _project_qkv(p, x, x)
+    if use_rope:
+        cos, sin = rope_tables(positions, q.shape[-1], rope_theta)
+        q = rotate(q, cos, sin)
+        k = rotate(k, cos, sin)
+    o = grouped_attend(q, k, v, make_mask(positions, positions, True, window))
+    S, T = x.shape[1], cache["k"].shape[1]
+    if S > T:
+        raise ValueError(f"prefill of {S} tokens into a cache of {T} slots")
+    pos1d = positions[0] if positions.dim() > 1 else positions
+    cache["k"][:, :S] = as_dtype(k, cache["k"].dtype)
+    cache["v"][:, :S] = as_dtype(v, cache["v"].dtype)
+    cache["kpos"][:S] = pos1d.to(torch.int32)
+    return _out_proj(p, o), cache
+
+
+def attention_decode(p: Params, x: torch.Tensor, pos: torch.Tensor, *,
+                     cache: Params, window: int = 0, use_rope: bool = True,
+                     rope_theta: float = 10000.0
+                     ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode of every row at ONE position. x: (B,1,d); pos: 0-d
+    int tensor. With ``window > 0`` the cache is a ring (slot
+    ``pos % T``), else slot ``pos``; the slot is clamped into
+    ``[0, T-1]`` as ``jax.lax.dynamic_update_slice`` clamps its start.
+    Writes k/v and ``kpos`` in place, then attends every slot holding a
+    position in ``(pos - window, pos]``."""
+    B, T = x.shape[0], cache["k"].shape[1]
+    q, k, v = _project_qkv(p, x, x)
+    pos = pos.to(torch.int64).reshape(())
+    if use_rope:
+        cos, sin = rope_tables(pos.expand(B, 1), q.shape[-1], rope_theta)
+        q = rotate(q, cos, sin)
+        k = rotate(k, cos, sin)
+    slot = (pos % T if window > 0 else pos).clamp(0, T - 1).reshape(1)
+    ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+    ck.index_copy_(1, slot, as_dtype(k, ck.dtype))
+    cv.index_copy_(1, slot, as_dtype(v, cv.dtype))
+    kpos.index_copy_(0, slot, pos.to(torch.int32).reshape(1))
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window:
+        valid = valid & (kpos > pos - window)
+    o = grouped_attend(q, ck, cv, valid[None, None, None, None, :])
+    return _out_proj(p, o), cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,13 @@ leading ``L`` axis — held in a ``ParamTree`` module; the JAX ``scan``
 over layers is a Python loop. KV caches are ``{"layers": {"k", "v"}}``
 with a leading ``L`` axis, updated in place and returned.
 
+  decode cache      (L, B, T, K, hd) + kpos (L, T)   single-shot path
   dense slot cache  (L, B, T, K, hd)          one linear row per slot
   paged pool        (L, n_pages, ps, K, hd)   rows read through page maps
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -175,6 +176,87 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
                                               device=x.device)
 
 
+def _take_cols(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Row b's column ``n_b - 1`` of x (B,S,d), clamped into ``[0, S-1]``
+    as ``jnp.take_along_axis`` after ``jnp.clip``: (B,1,d)."""
+    idx = (n.long() - 1).clamp(0, x.shape[1] - 1)
+    return torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[2]))
+
+
+# ---------------------------------------------------------------------------
+# Single-shot path: prefill + lockstep decode over a kpos-tagged cache
+# ---------------------------------------------------------------------------
+def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int,
+                      device: DeviceLike = "cuda") -> Params:
+    """``{"layers": {"k", "v", "kpos"}}`` with a leading ``L`` axis; a
+    sliding-window arch gets a ring of ``min(window, cache_len)`` slots.
+    ``kpos`` starts at ``-1`` (empty)."""
+    _check_dense(cfg)
+    eff = min(cfg.sliding_window, cache_len) if cfg.sliding_window \
+        else cache_len
+    one = attn_mod.init_cache(batch, eff, cfg.n_kv_heads, cfg.head_dim,
+                              dtype_of(cfg.activ_dtype), device)
+    return {"layers": {n: t.expand(cfg.n_layers, *t.shape).contiguous()
+                       for n, t in one.items()}}
+
+
+def _layer_cache(cache: Params, i: int) -> Params:
+    return {n: cache["layers"][n][i] for n in ("k", "v", "kpos")}
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
+            cache_len: Optional[int] = None,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Params]:
+    """Forward over the prompt (B,S), building a decode cache of
+    ``cache_len`` slots (default ``S + 64``) on the tokens' device.
+    Returns (last-token logits (B,1,V), cache). ``lengths`` (B,) makes the
+    batch ragged: row b's prompt is ``tokens[b, :lengths_b]`` and its
+    logits are column ``lengths_b - 1`` — causal masking keeps the padded
+    tail out of every valid position."""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    w = cfg.sliding_window
+    if cache_len is None:
+        cache_len = S + 64
+    if w and S > min(w, cache_len):
+        raise ValueError("sliding-window prefill longer than the window is "
+                         "unsupported (decode-only shape); prefill chunking "
+                         "is a serving-layer feature")
+    cache = init_decode_cache(cfg, B, cache_len, device=tokens.device)
+    x = _embed_in(params, cfg, tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        bp = layer(params["blocks"], i)
+        hh = apply_norm(bp["ln1"], x, cfg.norm_eps)
+        a, _ = attn_mod.attention_prefill(
+            bp["attn"], hh, positions, cache=_layer_cache(cache, i),
+            window=w, use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
+        x = _ffn(bp, x + a, cfg)
+    x = x[:, -1:, :] if lengths is None else _take_cols(x, lengths)
+    return _head(params, cfg, x), cache
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
+                pos: Union[int, torch.Tensor], cache: Params
+                ) -> Tuple[torch.Tensor, Params]:
+    """ONE-token lockstep decode: token (B,1), ``pos`` the one absolute
+    position of every row (an int or 0-d tensor). Writes the cache in
+    place. Returns (logits (B,1,V), cache)."""
+    _check_dense(cfg)
+    x = _embed_in(params, cfg, token)
+    pos = torch.as_tensor(pos, device=x.device)
+    for i in range(cfg.n_layers):
+        bp = layer(params["blocks"], i)
+        hh = apply_norm(bp["ln1"], x, cfg.norm_eps)
+        a, _ = attn_mod.attention_decode(
+            bp["attn"], hh, pos, cache=_layer_cache(cache, i),
+            window=cfg.sliding_window, use_rope=cfg.use_rope,
+            rope_theta=cfg.rope_theta)
+        x = _ffn(bp, x + a, cfg)
+    return _head(params, cfg, x), cache
+
+
 # ---------------------------------------------------------------------------
 # Dense slot cache
 # ---------------------------------------------------------------------------
@@ -204,12 +286,15 @@ def decode_step_ragged(params, cfg: ArchConfig, token: torch.Tensor,
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor,
-                  off: torch.Tensor, clen: torch.Tensor, cache: Params
-                  ) -> Tuple[torch.Tensor, Params]:
+                  off: torch.Tensor, clen: torch.Tensor, cache: Params,
+                  all_logits: bool = False) -> Tuple[torch.Tensor, Params]:
     """One chunk of a chunked ragged prefill into the dense slot cache.
     tokens: (B,C) — row b's valid tokens are ``tokens[b, :clen_b]`` at
     absolute positions ``[off_b, off_b + clen_b)``. Returns (logits at
-    each row's last VALID column (B,1,V), cache)."""
+    each row's last VALID column (B,1,V), cache). ``all_logits=True``
+    returns the WHOLE chunk's logits (B,C,V) instead — the speculative
+    verify shape, whose column ``clen-1`` equals the default path's bit
+    for bit."""
     _check_dense(cfg)
     x = _embed_in(params, cfg, tokens)
     for i in range(cfg.n_layers):
@@ -220,9 +305,13 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor,
             bp["attn"], hh, off, clen, cache=cl, use_rope=cfg.use_rope,
             rope_theta=cfg.rope_theta)
         x = _ffn(bp, x + a, cfg)
-    idx = (clen.long() - 1).clamp(0, x.shape[1] - 1)
-    x = torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[2]))
-    return _head(params, cfg, x), cache
+    if all_logits:
+        # one head call per column: a matrix product's rounding may depend
+        # on its row count, and column clen-1 must equal the default
+        # path's (B,1) call bit for bit
+        return torch.cat([_head(params, cfg, x[:, c:c + 1])
+                          for c in range(x.shape[1])], dim=1), cache
+    return _head(params, cfg, _take_cols(x, clen)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -256,13 +345,15 @@ def scatter_kv_pages(buf: torch.Tensor, page_map: torch.Tensor,
 
 def prefill_chunk_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
                         off: torch.Tensor, clen: torch.Tensor, pool: Params,
-                        rmap: torch.Tensor, wmap: torch.Tensor
+                        rmap: torch.Tensor, wmap: torch.Tensor,
+                        all_logits: bool = False
                         ) -> Tuple[torch.Tensor, Params]:
     """``prefill_chunk`` through a page table: gather each row's pages
     (``rmap``), run the same chunk math, scatter back through ``wmap``."""
     view = {"layers": {n: gather_kv_pages(pool["layers"][n], rmap)
                        for n in ("k", "v")}}
-    logits, view = prefill_chunk(params, cfg, tokens, off, clen, view)
+    logits, view = prefill_chunk(params, cfg, tokens, off, clen, view,
+                                 all_logits=all_logits)
     for n in ("k", "v"):
         scatter_kv_pages(pool["layers"][n], wmap, view["layers"][n])
     return logits, pool

@@ -5,11 +5,10 @@ The same grouped dataclasses and the same validation at construction:
   SamplingConfig       temperature / top_k / sample_seed
   BackpressureConfig   max_queue / shed_policy / admission_deadline
   PagingConfig         page_size / n_pages / prefix_reuse
+  SpeculativeConfig    draft_params / draft_cfg / k / window
 
 ``ServingEngine(params, cfg, serving=ServingConfig(...))`` is the entry
 point; ``ServingConfig.from_flat`` is the kwargs-shaped builder.
-Speculative decoding is not ported yet: a ``speculative`` setting raises
-``NotImplementedError`` naming ROADMAP C4.
 """
 from __future__ import annotations
 
@@ -64,6 +63,30 @@ class PagingConfig:
 
 
 @dataclass(frozen=True, eq=False)
+class SpeculativeConfig:
+    """Speculative decoding: a small draft LM proposes ``k`` tokens per
+    round and the served model verifies them in ONE prefill-chunk-shaped
+    dispatch. ``window`` is the draft's cacheless context length —
+    history is truncated to the last ``window - k`` tokens, which moves
+    only the ACCEPTANCE RATE, never the output (the accept rule emits
+    exactly the target model's greedy stream). ``draft_cfg`` must be an
+    attention LM over (at least) the served vocab; greedy sampling
+    only. ``draft_params`` lie on the engine's device."""
+    draft_params: Any
+    draft_cfg: Any                       # ArchConfig (kept Any: no dep cycle)
+    k: int = 4
+    window: int = 16
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"speculative k={self.k} must be >= 1")
+        if self.window <= self.k:
+            raise ValueError(
+                f"speculative window={self.window} must exceed k={self.k} "
+                f"(the draft needs at least one history token)")
+
+
+@dataclass(frozen=True, eq=False)
 class ServingConfig:
     """Everything ``ServingEngine`` needs beyond (params, model cfg).
     ``start_version`` numbers the initial params (a training step when
@@ -78,7 +101,7 @@ class ServingConfig:
     backpressure: BackpressureConfig = field(
         default_factory=BackpressureConfig)
     paging: Optional[PagingConfig] = None
-    speculative: Optional[Any] = None
+    speculative: Optional[SpeculativeConfig] = None
 
     def __post_init__(self):
         cap = self.resolved_prompt_cap
@@ -98,8 +121,16 @@ class ServingConfig:
                     f"max_seq={self.max_seq} must be a multiple of "
                     f"page_size={ps} (whole pages per row)")
         if self.speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP C4)")
+            if self.sampling.temperature != 0.0:
+                raise ValueError(
+                    f"speculative decoding requires greedy sampling "
+                    f"(temperature=0), got temperature="
+                    f"{self.sampling.temperature}")
+            if self.speculative.k + 1 > cap:
+                raise ValueError(
+                    f"speculative draft k={self.speculative.k} exceeds "
+                    f"prompt_cap={cap} (a verify chunk carries k+1 "
+                    f"tokens and must fit one prefill chunk)")
 
     @property
     def resolved_prompt_cap(self) -> int:
@@ -119,7 +150,8 @@ class ServingConfig:
                   n_pages: Optional[int] = None,
                   prefix_reuse: bool = True,
                   decode_kernel: str = "flash",
-                  speculative: Optional[Any] = None) -> "ServingConfig":
+                  speculative: Optional[SpeculativeConfig] = None
+                  ) -> "ServingConfig":
         """Build a grouped config from the flat kwargs."""
         if page_size is not None:
             paging = PagingConfig(page_size=int(page_size), n_pages=n_pages,

@@ -41,6 +41,16 @@ recorded in ``shed_log``; an admitted request always finishes.
 that depend only on (seed, request id, token index, logits)
 (``serving/sampling.py``).
 
+**Speculative decoding** (``speculative`` set, greedy only): each round
+a draft LM proposes up to k tokens for every live row in ONE dispatch,
+then the served model checks them with ONE prefill-chunk-shaped VERIFY
+dispatch per live version, which replaces the decode dispatch. The
+longest prefix of drafts equal to the target's own argmax chain is kept,
+plus the target's token at the first mismatch, so the emitted stream is
+the target's greedy stream token for token; the draft decides only how
+many tokens one dispatch advances. A speculative engine launches no
+flash-decode kernel.
+
 **Timing**: ``SimulatedServeSession`` drives the engine on a
 discrete-event clock charged by a ``ServeCostModel`` over the padded
 shapes each step executed, with timestamped arrivals and param swaps —
@@ -51,8 +61,6 @@ wall clock.
 Slot invariant: cache row ``s`` is valid exactly on ``[0, pos_s]`` and
 decode at position ``p`` overwrites index ``p`` before attending to it,
 so freed rows never need scrubbing.
-
-Not ported yet: speculative decoding (ROADMAP C4).
 """
 from __future__ import annotations
 
@@ -71,7 +79,7 @@ from repro_torch.models.layers import ParamTree, dtype_of
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.paging import PagePool, PrefixTrie
 from repro_torch.serving.sampling import sample_tokens
-from repro_torch.train.step import build_serve_programs
+from repro_torch.train.step import build_draft_program, build_serve_programs
 
 
 def pow2_bucket(n: int, lo: int = 1, hi: Optional[int] = None) -> int:
@@ -129,6 +137,10 @@ class StepReport:
     decode_kv: List[int] = field(default_factory=list)
     # ^ dense flash-decode only: KV tokens READ per decode dispatch (sum
     #   over live rows of pos + 1)
+    verify_shapes: List[Tuple[int, int]] = field(default_factory=list)
+    # ^ speculative mode: (batch, chunk_cap) of each verify dispatch —
+    #   charged at prefill rates by the cost model
+    draft_dispatches: int = 0           # speculative draft calls
 
 
 @dataclass
@@ -156,6 +168,9 @@ class ServeStats:
     prefix_hits: int = 0            # paged: admissions that reused pages
     reused_tokens: int = 0          # paged: prompt tokens NOT re-prefilled
     decode_kv_tokens: int = 0       # dense flash: live KV tokens streamed
+    spec_rounds: int = 0            # speculative: (row, verify) rounds run
+    drafted: int = 0                # speculative: draft tokens proposed
+    accepted: int = 0               # speculative: draft tokens accepted
 
 
 @dataclass
@@ -196,6 +211,28 @@ class ServingEngine:
         if pdev.type != self.device.type:
             raise ValueError(f"params lie on {pdev}, the engine on "
                              f"{self.device}")
+        self.cfg = cfg
+        self._spec = serving.speculative
+        if self._spec is not None:
+            dcfg = self._spec.draft_cfg
+            if dcfg.arch_type not in ("dense", "moe"):
+                raise ValueError(
+                    f"speculative draft must be an attention LM "
+                    f"(dense/moe), not {dcfg.arch_type!r}")
+            if dcfg.arch_type != "dense":
+                raise NotImplementedError(
+                    "a MoE speculative draft is ROADMAP C7")
+            if dcfg.vocab_size < cfg.vocab_size:
+                raise ValueError(
+                    f"speculative draft vocab_size={dcfg.vocab_size} "
+                    f"cannot consume served tokens (vocab_size="
+                    f"{cfg.vocab_size})")
+            ddev = self._spec.draft_params["embed"].device
+            if ddev.type != self.device.type:
+                raise ValueError(f"draft params lie on {ddev}, the engine "
+                                 f"on {self.device}")
+            self._draft = build_draft_program(dcfg, k=self._spec.k,
+                                              window=self._spec.window)
         self.max_batch = int(serving.max_batch)
         self.max_seq = int(serving.max_seq)
         self.prompt_bucket_min = int(serving.prompt_bucket_min)
@@ -250,6 +287,7 @@ class ServingEngine:
         self.shed_policy = serving.backpressure.shed_policy
         self.admission_deadline = serving.backpressure.admission_deadline
         self._buckets: Dict[Tuple[int, int], int] = {}
+        self._verify_buckets: Dict[Tuple[int, int], int] = {}
         self._begin_run()
 
     def _begin_run(self) -> None:
@@ -274,6 +312,9 @@ class ServingEngine:
         self.prefix_hits = 0
         self.reused_tokens = 0
         self.decode_kv_tokens = 0
+        self.spec_rounds = 0
+        self.drafted = 0
+        self.accepted = 0
 
     # ------------------------------------------------------------------
     @property
@@ -290,6 +331,12 @@ class ServingEngine:
     def buckets_seen(self) -> List[Tuple[int, int]]:
         """``(batch_cap, chunk_cap)`` prefill buckets dispatched so far."""
         return sorted(self._buckets)
+
+    @property
+    def verify_buckets_seen(self) -> List[Tuple[int, int]]:
+        """Speculative mode: ``(batch, chunk_cap)`` verify buckets
+        dispatched so far — one, ``(max_batch, pow2_bucket(k + 1))``."""
+        return sorted(self._verify_buckets)
 
     @property
     def pages_free(self) -> int:
@@ -650,12 +697,19 @@ class ServingEngine:
         dispatches = 0
         decode_pages: List[int] = []
         decode_kv: List[int] = []
+        verify_shapes: List[Tuple[int, int]] = []
+        draft_dispatches = 0
         if self._live.any():
-            dispatches = self._step_decode(completed, decode_pages,
-                                           decode_kv)
+            if self._spec is not None:
+                dispatches, draft_dispatches = self._step_speculative(
+                    completed, verify_shapes)
+            else:
+                dispatches = self._step_decode(completed, decode_pages,
+                                               decode_kv)
         self.engine_steps += 1
         return StepReport(admitted, prefill_shapes, dispatches, completed,
-                          shed, decode_pages, decode_kv)
+                          shed, decode_pages, decode_kv, verify_shapes,
+                          draft_dispatches)
 
     def _step_decode(self, completed: List[Completion],
                      decode_pages: List[int], decode_kv: List[int]) -> int:
@@ -696,6 +750,100 @@ class ServingEngine:
                     completed.append(self._finish(s))
         return len(vers)
 
+    def _step_speculative(self, completed: List[Completion],
+                          verify_shapes: List[Tuple[int, int]]
+                          ) -> Tuple[int, int]:
+        """One speculative round: draft up to k tokens per live row in
+        ONE dispatch, then verify each live version's rows in ONE
+        prefill-chunk-shaped dispatch over [current token, drafts...] at
+        the row's frontier (row == slot; rows outside the version carry
+        ``clen == 0`` and neither write nor count). Greedy accept rule:
+        the longest prefix of drafts equal to the target's argmax chain,
+        plus the target's token at the first mismatch (or the bonus token
+        when all match). Rejected drafts leave KV past the new frontier,
+        which the next chunk overwrites before any query attends it.
+        Returns ``(verify dispatches, draft dispatches)``."""
+        spec = self._spec
+        B, W, k = self.max_batch, spec.window, spec.k
+        win = np.zeros((B, W), np.int32)
+        hlen = np.zeros(B, np.int32)
+        kb = np.zeros(B, np.int32)
+        for s in range(B):
+            if not self._live[s]:
+                continue
+            st = self._slots[s]
+            hist = list(st.req.prompt) + st.gen
+            take = min(len(hist), W - k)
+            win[s, :take] = hist[-take:]
+            hlen[s] = take
+            # never draft past the request's budget: emitting <= kb+1
+            # tokens keeps gen within max_new and every KV write within
+            # the row's pages / max_seq
+            kb[s] = min(k, st.req.max_new - len(st.gen) - 1)
+        draft_dispatches = 0
+        if (kb > 0).any():
+            with torch.profiler.record_function("spec.draft"):
+                drafts = self._draft(spec.draft_params, self._dev(win),
+                                     self._dev(hlen)).cpu().numpy()
+            draft_dispatches = 1
+            self.drafted += int(kb.sum())
+        else:
+            drafts = np.zeros((B, k), np.int32)
+        vcap = pow2_bucket(k + 1)       # pinned: ONE verify bucket ever
+        # a draft with a larger vocabulary may propose ids the served
+        # embedding lacks: JAX's gather clamps them, and so does this.
+        # Such a token never equals the target's argmax, so it is
+        # rejected and the columns it feeds are discarded
+        vmax = self.cfg.vocab_size - 1
+        dispatches = 0
+        vers = sorted({self._slots[s].ver
+                       for s in range(B) if self._live[s]})
+        for ver in vers:
+            group = np.array([self._live[s] and self._slots[s].ver == ver
+                              for s in range(B)], bool)
+            tokens = np.zeros((B, vcap), np.int32)
+            off = np.zeros(B, np.int32)
+            cl = np.zeros(B, np.int32)
+            for s in np.nonzero(group)[0]:
+                nkb = int(kb[s])
+                tokens[s, 0] = self._tok[s]
+                tokens[s, 1:1 + nkb] = np.minimum(drafts[s, :nkb], vmax)
+                off[s] = self._pos[s]
+                cl[s] = 1 + nkb
+            args = (self._versions[ver], self._dev(tokens), self._dev(off),
+                    self._dev(cl), self.cache)
+            with torch.profiler.record_function("spec.verify"):
+                if self.paged:
+                    rmap, wmap = self._decode_page_maps(group)
+                    logits, _ = self._programs.verify(*args, self._dev(rmap),
+                                                      self._dev(wmap))
+                else:
+                    logits, _ = self._programs.verify(*args)
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, vcap)
+            self._verify_buckets[(B, vcap)] = \
+                self._verify_buckets.get((B, vcap), 0) + 1
+            dispatches += 1
+            self.decode_dispatches += 1
+            self.decode_rows_live += int(group.sum())
+            self.decode_rows_total += B
+            verify_shapes.append((B, vcap))
+            for s in np.nonzero(group)[0]:
+                st = self._slots[s]
+                nkb = int(kb[s])
+                acc = 0
+                while acc < nkb and int(drafts[s, acc]) == int(nxt[s, acc]):
+                    acc += 1
+                emitted = [int(t) for t in drafts[s, :acc]] \
+                    + [int(nxt[s, acc])]
+                st.gen.extend(emitted)
+                self._pos[s] += len(emitted)
+                self._tok[s] = emitted[-1]
+                self.spec_rounds += 1
+                self.accepted += acc
+                if len(st.gen) >= st.req.max_new:
+                    completed.append(self._finish(s))
+        return dispatches, draft_dispatches
+
     # ------------------------------------------------------------------
     @property
     def has_work(self) -> bool:
@@ -725,7 +873,9 @@ class ServingEngine:
             concurrency_peak=self.concurrency_peak,
             pages_peak=self.pages_peak, prefix_hits=self.prefix_hits,
             reused_tokens=self.reused_tokens,
-            decode_kv_tokens=self.decode_kv_tokens)
+            decode_kv_tokens=self.decode_kv_tokens,
+            spec_rounds=self.spec_rounds, drafted=self.drafted,
+            accepted=self.accepted)
 
     def run_simulated(self, requests: Sequence[ServeRequest], cost: Any,
                       swaps: Sequence[Tuple[float, ParamTree, int]] = ()
@@ -828,9 +978,19 @@ class SimulatedServeSession:
         dt = 0.0
         for shape in rep.prefill_shapes:
             dt += self.cost.prefill_time(*shape)
+        draft_time = getattr(self.cost, "draft_time", None)
+        if rep.draft_dispatches and draft_time is not None:
+            spec = self.engine._spec
+            dt += rep.draft_dispatches * draft_time(
+                spec.k, self.engine.max_batch, spec.window)
         paged_time = getattr(self.cost, "decode_time_paged", None)
         flash_time = getattr(self.cost, "decode_time_flash", None)
-        if rep.decode_pages and paged_time is not None:
+        if rep.verify_shapes:
+            # speculative: a verify is a prefill-chunk dispatch, charged
+            # at prefill rates
+            for shape in rep.verify_shapes:
+                dt += self.cost.prefill_time(*shape)
+        elif rep.decode_pages and paged_time is not None:
             # paged engine: decode streams only the LIVE pages
             for pages in rep.decode_pages:
                 dt += paged_time(pages, self.engine.pages_per_slot)

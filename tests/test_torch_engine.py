@@ -124,8 +124,15 @@ def test_config_validation_and_unported_settings():
     with pytest.raises(ValueError, match="max_queue=0"):
         BackpressureConfig(max_queue=0)
     assert BackpressureConfig(max_queue=4).max_queue == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP C4"):
-        ServingConfig(max_batch=4, max_seq=32, speculative=object())
+    # speculative decoding (C4) is ported: the reference's two checks
+    from repro_torch.serving import SpeculativeConfig
+    spec = SpeculativeConfig(draft_params={}, draft_cfg=None, k=8, window=16)
+    with pytest.raises(ValueError, match="k=8.*prompt_cap=8"):
+        ServingConfig(max_batch=4, max_seq=64, prompt_cap=8, speculative=spec)
+    with pytest.raises(ValueError, match="temperature=0"):
+        ServingConfig(max_batch=4, max_seq=64,
+                      sampling=SamplingConfig(temperature=0.5),
+                      speculative=spec)
     assert ServingConfig(max_batch=4, max_seq=32).decode_kernel == "flash"
 
 

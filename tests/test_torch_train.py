@@ -297,11 +297,11 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         TrainingConfig(hierarchy=object())
     from repro_torch.launch import train, train_serve
-    # the train->serve loop (A7) is ported; its speculative decoding is C4
-    with pytest.raises(NotImplementedError, match="ROADMAP C4"):
-        train_serve.run_train_serve(train_serve.tiny_cfg(), [],
-                                    iterations=1, device="cpu",
-                                    speculative=object())
+    # the train->serve loop (A7) and its speculative decoding (C4) are
+    # ported: a bad speculative setting meets the reference's validation
+    from repro_torch.serving import SpeculativeConfig
+    with pytest.raises(ValueError, match="window=2 must exceed k=2"):
+        SpeculativeConfig(draft_params={}, draft_cfg=None, k=2, window=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         train.main(["--device", "cpu"])
     with pytest.raises(ValueError, match="deadline_quantile=1.5"):

@@ -177,11 +177,16 @@ def test_from_snapshot_engine_serves_the_loops_params(tmp_path):
 
 def test_unported_options_and_the_cuda_default():
     cfg = ts.tiny_cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP C4"):
-        ts.main(["--device", "cpu", "--speculative", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP C4"):
+    # speculative decoding is ported: the reference's validation errors
+    with pytest.raises(ValueError, match="temperature=0"):
+        ts.main(["--device", "cpu", "--speculative", "4",
+                 "--temperature", "0.5"])
+    from repro_torch.serving import SpeculativeConfig
+    spec = SpeculativeConfig(draft_params={}, draft_cfg=cfg, k=16,
+                             window=32)
+    with pytest.raises(ValueError, match="k=16.*prompt_cap=16"):
         ts.run_train_serve(cfg, [], iterations=1, device="cpu",
-                           speculative=object())
+                           speculative=spec)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is valid here")
     from repro_torch.core.closure import torchify
