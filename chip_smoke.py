@@ -105,6 +105,35 @@ result):
    speculative counters equal, token streams equal under the near-tie
    rule (each request against its pinned version), at least one step on
    the card verifying two versions, no flash_decode launch;
+9b. hier (slice 9) — ``python -m repro_torch.launch.train --simulate
+   --regions 4``'s path (``run_hierarchy``): ``mlitb-lm-100m`` at full
+   width (depth not cut) through 4 regional sub-masters, each over
+   ``build_training``'s four-worker fleet and a quarter of the data, H 4,
+   8 steps = 2 outer steps of top-k 0.25 WAN gossip, AdaGrad lr 0.003:
+   every region's loss finite where a reduce ran, every outer loss
+   finite, the WAN bytes exactly 8 k (R - 1) R per outer step, the spread
+   finite, the consensus unflattening to the model's shapes; host ms per
+   inner iteration, ms per outer exchange (CUDA events), WAN share, peak
+   memory;
+9c. hier-small — that hierarchy at ``mlitb-lm-100m.reduced()`` on the
+   card and on the CPU, region r1 parked before outer step 2 and rejoined
+   before 3: every OuterLog's clock, vectors, WAN bytes, region steps and
+   events and every region's iteration events, wire bytes and keeps
+   equal, losses and params within 1e-3 relative; a two-tier TrainState
+   written after 2 outer steps and resumed equal to the uninterrupted
+   card run bit for bit; ``serving_params_from_train_state`` =
+   ``consensus_flat``; then sub-masters on the blocktopk channel (1/32,
+   block_w 32), card = CPU, ``fused_compress`` launched once per region
+   per reduce step (counters reset just before, read just after);
+9d. randk — the fused reducer's randk branch over the LM's flat buffer
+   (4 seeded workers, frac 1/128, 3 steps): k distinct indices per row,
+   scatter(vals) + res == g + r bit for bit, new masks each step, the
+   card's scores and picks equal to the CPU's on the first 2^22
+   entries; ms per reduce step, peak memory;
+9e. dense-reduce — ``MasterReducer(fused=False)`` at the reduced LM:
+   uncompressed within 1e-5 of the fused path; topk, blocktopk and randk
+   channels card = CPU in masks and wire bytes bit for bit, params
+   within 1e-6;
 10. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
@@ -153,10 +182,13 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (AdaptiveFracController,  # noqa: E402
                               AdaptiveScheduler, GradientCompressor,
-                              GuardrailConfig, JoinEvent, MasterEventLoop,
-                              MasterReducer, TrainingConfig,
+                              GuardrailConfig, HierarchyConfig, JoinEvent,
+                              MasterEventLoop, MasterReducer, TrainingConfig,
                               UploadDataEvent, flat_spec)
-from repro_torch.core.flatbuf import tree_leaves  # noqa: E402
+from repro_torch.core.compression import (randk_indices,  # noqa: E402
+                                          randk_scores)
+from repro_torch.core.flatbuf import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core.guardrails import make_lm_probe  # noqa: E402
 from repro_torch.core import reducer as reducer_mod  # noqa: E402
 from repro_torch.core import simulation as sim  # noqa: E402
 from repro_torch.core.config import DeadlineConfig  # noqa: E402
@@ -172,7 +204,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
     block_topk_flat_ref, fused_block_topk_batched_ref)
 from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
-from repro_torch.launch.train import run_lm  # noqa: E402
+from repro_torch.launch.train import run_hierarchy, run_lm  # noqa: E402
 from repro_torch.launch.train_serve import (build_training,  # noqa: E402
                                             run_train_serve)
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -1925,6 +1957,475 @@ def phase_train_serve_small(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 9: the two-tier hierarchy, randk and the dense reducer path
+# ---------------------------------------------------------------------------
+# run_simulated(regions=4)'s shape: 4 regions of build_training's fleet,
+# H 4 inner iterations per outer step, top-k 0.25 gossip; 8 steps = 2
+# outer steps at full width (AdaGrad at LM_LR)
+HIER_REGIONS, HIER_H, HIER_STEPS, HIER_GOSSIP = 4, 4, 8, 0.25
+# the reduced runs, card against CPU: 4 outer steps, region r1 parked
+# before outer step 2 and rejoined before outer step 3; a TrainState
+# written after HIER_RESUME_AT outer steps resumes the rest
+HIER_SMALL_OUTER, HIER_RESUME_AT = 4, 2
+HIER_CHURN = {1: "leave", 2: "join"}
+# the blocktopk sub-masters: the elastic-SGD demo's channel
+HIER_BLOCK = dict(frac=1 / 32, block_w=32)
+RANDK_FRAC, RANDK_SLICE = 1 / 128, 1 << 22
+# card vs CPU, each region's ||params_card - params_cpu|| / ||params_cpu||
+# (same_hier says why the bound is not 1e-3); the probe batch of the
+# consensus params' loss
+HIER_PARAM_RTOL, HIER_PROBE = 5e-2, 64
+DENSE_CHANNELS = (("topk", 0.1), ("blocktopk", 1 / 32), ("randk", 1 / 32))
+
+
+def hier_config() -> HierarchyConfig:
+    return HierarchyConfig(n_regions=HIER_REGIONS, inner_steps=HIER_H,
+                           gossip=True, gossip_frac=HIER_GOSSIP)
+
+
+def check_region_losses(master, what: str) -> list:
+    """Every region's iterations: a loss where a reduce ran, none where
+    every reply was late; every outer step's loss finite. Returns the
+    outer losses."""
+    for r, loop in sorted(master.regions.items()):
+        for lg in loop.history:
+            if (lg.n_workers > 0) != math.isfinite(lg.loss) or (
+                    lg.n_workers == 0 and lg.n_late == 0):
+                raise AssertionError(f"{what} {r} iteration {lg.step}: loss "
+                                     f"{lg.loss}, {lg.n_workers} workers "
+                                     f"reduced, {lg.n_late} late")
+    losses = [lg.loss for lg in master.history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: outer losses {losses}")
+    return losses
+
+
+def phase_hier(card: str) -> dict:
+    """The full-width two-tier hierarchy: run_simulated(regions=4)'s
+    path, timed by run_hierarchy."""
+    cfg = get_config(ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime.reset_counters()
+    run = run_hierarchy(cfg, outer_steps=HIER_STEPS // HIER_H,
+                        hierarchy=hier_config(), T=0.5, seed=0,
+                        device="cuda", lr=LM_LR)
+    launches = {k: c.count for k, c in runtime.COUNTERS.items()}
+    master = run.master
+    losses = check_region_losses(master, f"[hier] {ARCH}")
+    n = cfg.n_params()
+    k = int(HIER_GOSSIP * n)
+    want = 8 * k * (HIER_REGIONS - 1) * HIER_REGIONS
+    wan = [lg.wan_bytes for lg in run.logs]
+    if master.regions["r0"].reducer.flat_n != n or wan != [want] * len(wan):
+        raise AssertionError(f"[hier] WAN bytes {wan} per outer step, want "
+                             f"{want} (8 k (R-1) R, k = {k})")
+    spread = [lg.spread for lg in run.logs]
+    if not all(math.isfinite(x) for x in spread):
+        raise AssertionError(f"[hier] spread {spread}")
+    consensus = master.params
+    template = tf.init_params(cfg, seed=0, device="cpu")
+    got = [(p, tuple(x.shape), x.dtype) for p, x in
+           zip(flat_spec(consensus).paths, tree_leaves(consensus))]
+    exp = [(p, tuple(x.shape), x.dtype) for p, x in
+           zip(flat_spec(template).paths, tree_leaves(template))]
+    del template
+    if got != exp or not bool(torch.isfinite(master.consensus_flat()).all()):
+        raise AssertionError("[hier] the consensus params do not unflatten "
+                             "to the model's shapes, or are not finite")
+    s = master.summary()
+    iter_ms = [1e3 * x for x in run.iter_s]
+    res = {"regions": HIER_REGIONS, "inner_steps": HIER_H,
+           "outer_steps": master.outer_step, "n_params": n, "gossip_k": k,
+           "loss": losses, "spread": spread, "wan_bytes": wan,
+           "wan_time_s": [lg.wan_time for lg in run.logs],
+           "summary": s, "clock_s": master.clock,
+           "region_losses": {r: [lg.loss for lg in lp.history]
+                             for r, lp in master.regions.items()},
+           "host_ms_per_inner_iter": iter_ms,
+           "host_ms_median": float(np.median(iter_ms)),
+           "outer_exchange_ms": run.outer_ms,
+           "peak_mem_bytes": run.peak_mem_bytes, "launches": launches}
+    del run, master, consensus
+    gc.collect()            # the loops' reference cycles hold the state
+    torch.cuda.empty_cache()
+    print(f"[hier] {ARCH} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n} parameters), {HIER_REGIONS} regions x "
+          f"build_training's fleet ({HIER_REGIONS * 4} workers), H "
+          f"{HIER_H}, {res['outer_steps']} outer steps (AdaGrad lr "
+          f"{LM_LR}, top-k 0.1 within regions, gossip top-k {HIER_GOSSIP}): "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; host ms per inner "
+          f"iteration median {res['host_ms_median']:.1f} (range "
+          f"{min(iter_ms):.1f}-{max(iter_ms):.1f}, {len(iter_ms)} "
+          f"iterations); ms per outer exchange "
+          f"{', '.join(f'{x:.1f}' for x in res['outer_exchange_ms'])} "
+          f"(CUDA events: compress + gossip + correction, 4 regions); WAN "
+          f"{wan} bytes per outer step (= 8 k (R-1) R), "
+          f"{100 * s['wan_bytes_frac']:.2f}% of all gradient traffic; "
+          f"spread {', '.join(f'{x:.3e}' for x in spread)}; simulated clock "
+          f"{res['clock_s']:.2f} s; kernel launches {launches}; peak mem "
+          f"{res['peak_mem_bytes'] / 2**30:.2f} GiB | {card}")
+    return res
+
+
+def small_hier(small, device: str, blocktopk: bool = False):
+    """build_training's two-tier hierarchy at the reduced size; with
+    ``blocktopk`` the sub-masters use the fused block-top-k channel
+    (swapped in before any reduce, so no step closure exists yet)."""
+    master, cluster, params = build_training(
+        small, training=TrainingConfig(
+            T=0.5, deadline=DeadlineConfig(quantile=0.5),
+            hierarchy=hier_config()), seed=0, lr=LM_LR, device=device)
+    if blocktopk:
+        for loop in master.regions.values():
+            loop.reducer.compressor = GradientCompressor("blocktopk",
+                                                         **HIER_BLOCK)
+    return master, cluster, params
+
+
+def drive_hier(master, until: int) -> None:
+    """Outer steps up to ``until``, parking region r1 and rejoining it at
+    the steps HIER_CHURN names."""
+    while master.outer_step < until:
+        ev = HIER_CHURN.get(master.outer_step)
+        if ev == "leave":
+            master.leave_region("r1")
+        elif ev == "join":
+            master.join_region("r1")
+        master.iteration()
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| over two flat parameter buffers."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def same_hier(gpu, cpu, what: str, probe) -> dict:
+    """Card against CPU: every OuterLog's clock, vectors, WAN bytes,
+    region steps and events equal, and every region's IterationLogs
+    (events, workers, vectors, wire bytes, per-worker keeps); every loss
+    within 1e-3 relative, and the consensus params' loss on ``probe`` (a
+    fixed batch, on the CPU) within 1e-3. The params themselves part
+    further: a top-k pick that rounding flips between the card and the
+    CPU moves its entry by a whole AdaGrad step and changes the error
+    feedback from then on: two CPU runs of this hierarchy whose gradients
+    differ by 1e-6 relative noise part by 1.04e-2 to 1.07e-2 in
+    ``rel_diff`` (``scripts/hier_flip_drift.py``). So each region's
+    ``rel_diff`` is held to HIER_PARAM_RTOL, about 5x that. Returns the
+    largest relative differences."""
+    loss_rel = 0.0
+    if len(gpu.history) != len(cpu.history):
+        raise AssertionError(f"{what}: outer steps differ")
+    for a, b in zip(gpu.history, cpu.history):
+        ka = (a.clock, a.vectors, a.wan_bytes, a.wan_time, a.region_steps,
+              a.events)
+        kb = (b.clock, b.vectors, b.wan_bytes, b.wan_time, b.region_steps,
+              b.events)
+        if ka != kb:
+            raise AssertionError(f"{what} outer step {a.outer_step}: card "
+                                 f"{ka} vs cpu {kb}")
+        r = abs(a.loss - b.loss) / abs(b.loss)
+        if not r <= 1e-3:
+            raise AssertionError(f"{what} outer step {a.outer_step}: loss "
+                                 f"{a.loss} vs {b.loss}")
+        loss_rel = max(loss_rel, r)
+    param_rel = 0.0
+    for r in sorted(gpu.regions):
+        loss_rel = max(loss_rel, same_lm_logs(
+            gpu.regions[r].history, cpu.regions[r].history, f"{what} {r}"))
+        d = rel_diff(gpu.regions[r].reducer.flat_params,
+                     cpu.regions[r].reducer.flat_params)
+        if not d <= HIER_PARAM_RTOL:
+            raise AssertionError(f"{what} {r}: params {d:.2e} apart "
+                                 f"(||card - cpu|| / ||cpu||)")
+        param_rel = max(param_rel, d)
+    pg = probe(tree_map(lambda x: x.cpu(), gpu.params))
+    pc = probe(cpu.params)
+    probe_rel = abs(pg - pc) / abs(pc)
+    if not probe_rel <= 1e-3:
+        raise AssertionError(f"{what}: the consensus params' probe loss "
+                             f"{pg} on the card vs {pc} on the CPU")
+    return {"loss_rel": loss_rel, "param_rel": param_rel,
+            "probe_rel": probe_rel, "probe_loss": pc}
+
+
+def hier_parts(master) -> dict:
+    """The hierarchy's mutable tensors, for a bitwise comparison."""
+    parts = {}
+    for r, loop in sorted(master.regions.items()):
+        for k, v in train_state_parts(loop).items():
+            parts[f"{r} {k}"] = v
+    for r, g in master._ghosts.items():
+        parts[f"{r} ghost"] = g
+    for r, v in master._residuals.items():
+        if v is not None:
+            parts[f"{r} gossip residual"] = v
+    return parts
+
+
+def phase_hier_small(card: str) -> dict:
+    from repro_torch.checkpoint.io import (TrainState, load_train_state,
+                                           save_train_state,
+                                           serving_params_from_train_state)
+
+    small = get_config(ARCH).reduced()
+    (X, y), _ = sim.make_lm_problem(small, seed=0, device="cpu")
+    probe = make_lm_probe(small, X[:HIER_PROBE], y[:HIER_PROBE],
+                          device="cpu")
+    # -- the topk hierarchy with regional churn, card and CPU -------------
+    gpu, _, template = small_hier(small, "cuda")
+    drive_hier(gpu, HIER_SMALL_OUTER)
+    cpu, _, _ = small_hier(small, "cpu")
+    drive_hier(cpu, HIER_SMALL_OUTER)
+    rel = same_hier(gpu, cpu, "[hier-small] topk", probe)
+    losses = check_region_losses(gpu, "[hier-small] topk")
+    events = [e for lg in gpu.history for e in lg.events]
+    if events != ["region-leave:r1", "region-join:r1"]:
+        raise AssertionError(f"[hier-small] outer events {events}")
+    # -- the two-tier TrainState: written mid-run, resumed ---------------
+    a, cluster_a, _ = small_hier(small, "cuda")
+    drive_hier(a, HIER_RESUME_AT)
+    path = str(ROOT / "build" / "hier_state.npz")
+    (ROOT / "build").mkdir(exist_ok=True)
+    save_train_state(path, TrainState.capture(a, cluster_a))
+    b, cluster_b, _ = small_hier(small, "cuda")
+    load_train_state(path).restore(b, cluster_b)
+    drive_hier(b, HIER_SMALL_OUTER)
+    for x, y in zip(gpu.history, b.history):
+        if x != y:
+            raise AssertionError(f"[hier-small] resumed outer step "
+                                 f"{y.outer_step}: {y} vs the uninterrupted "
+                                 f"{x}")
+    for r in sorted(gpu.regions):
+        where = first_difference(gpu.regions[r].history,
+                                 b.regions[r].history, gpu.regions[r],
+                                 b.regions[r])
+        if where:
+            raise AssertionError(f"[hier-small] resumed region {r} parts "
+                                 f"from the uninterrupted run at {where}")
+    pa, pb = hier_parts(gpu), hier_parts(b)
+    bad = [k for k in pa if k not in pb or not same_bits(pa[k], pb[k])]
+    if bad or sorted(pa) != sorted(pb):
+        raise AssertionError(f"[hier-small] resumed state differs: {bad}")
+    params, version = serving_params_from_train_state(
+        TrainState.capture(gpu), template)
+    if not same_bits(flat_spec(params).flatten(params),
+                     gpu.consensus_flat()) or version != max(
+                         lp.step for lp in gpu.regions.values()):
+        raise AssertionError("[hier-small] serving_params_from_train_state "
+                             "is not the consensus")
+    # -- blocktopk sub-masters: one fused_compress launch per region per
+    # reduce step, card and CPU ------------------------------------------
+    runtime.reset_counters()
+    bt_gpu, _, _ = small_hier(small, "cuda", blocktopk=True)
+    drive_hier(bt_gpu, HIER_SMALL_OUTER)
+    torch.cuda.synchronize()
+    launches = tk_ops.COUNTER.count
+    steps = {r: lp.reducer.step for r, lp in sorted(bt_gpu.regions.items())}
+    runtime.reset_counters()
+    bt_cpu, _, _ = small_hier(small, "cpu", blocktopk=True)
+    drive_hier(bt_cpu, HIER_SMALL_OUTER)
+    if tk_ops.COUNTER.count:
+        raise AssertionError("the CPU blocktopk hierarchy launched the "
+                             "kernel")
+    bt_rel = same_hier(bt_gpu, bt_cpu, "[hier-small] blocktopk", probe)
+    check_region_losses(bt_gpu, "[hier-small] blocktopk")
+    if launches == 0 or launches != sum(steps.values()):
+        raise AssertionError(f"fused_compress launched {launches} times over "
+                             f"{steps} reduce steps")
+    res = {"loss": losses, "card_vs_cpu": rel, "outer_events": events,
+           "wan_bytes": [lg.wan_bytes for lg in gpu.history],
+           "region_steps": [lg.region_steps for lg in gpu.history],
+           "resume_at": HIER_RESUME_AT, "serving_version": version,
+           "blocktopk_loss": [lg.loss for lg in bt_gpu.history],
+           "blocktopk_card_vs_cpu": bt_rel, "launches": launches,
+           "reduce_steps": steps}
+    print(f"[hier-small] {ARCH}.reduced() {HIER_REGIONS} regions, "
+          f"{HIER_SMALL_OUTER} outer steps (r1 parked before 2, rejoined "
+          f"before 3) card vs CPU: OuterLog clocks, vectors, WAN bytes "
+          f"{res['wan_bytes']}, region steps and events, every region's "
+          f"iteration events, wire bytes and keeps equal, losses within "
+          f"{rel['loss_rel']:.1e} rel, the consensus' probe loss within "
+          f"{rel['probe_rel']:.1e}, params {rel['param_rel']:.2e} apart "
+          f"(||card - cpu|| / ||cpu||, bound {HIER_PARAM_RTOL}); TrainState "
+          f"written after "
+          f"{HIER_RESUME_AT} outer steps and resumed: OuterLogs, region "
+          f"logs, params, optimizer states, residuals, ghosts and gossip "
+          f"residuals bit-equal; serving_params_from_train_state = "
+          f"consensus_flat (version {version}); blocktopk sub-masters "
+          f"(1/32, block_w 32) card = CPU (losses within "
+          f"{bt_rel['loss_rel']:.1e}, probe {bt_rel['probe_rel']:.1e}, "
+          f"params {bt_rel['param_rel']:.2e} apart), "
+          f"fused_compress launches {launches} = reduce steps "
+          f"{sum(steps.values())} {steps} | {card}")
+    return res
+
+
+def phase_randk(card: str) -> dict:
+    """randk on the fused reducer over the LM's flat buffer: 4 workers'
+    seeded gradients, frac 1/128, 3 reduce steps."""
+    cfg = get_config(ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    comp = GradientCompressor("randk", frac=RANDK_FRAC)
+    red = MasterReducer(params, adagrad(lr=0.02), comp)
+    del params
+    spec = flat_spec(red.params)
+    n = red.flat_n
+    k = comp.flat_k(n)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, prev, slice_checked = [], None, 0
+    for s in range(3):
+        msgs = {f"w{i}": (spec.unflatten(torch.randn(
+            n, generator=gen, device="cuda")), 1000 + i) for i in range(4)}
+        names = sorted(msgs)
+        corrected = {w: spec.flatten(msgs[w][0]) + red._residuals.get(
+            w, torch.zeros(n, device="cuda")) for w in names}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        red.reduce_and_step(msgs)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        del msgs
+        for row, w in enumerate(names):
+            key = comp.flat_key(s, row)
+            idx = randk_indices(key, n, k, "cuda").long()
+            if torch.unique(idx).numel() != k:
+                raise AssertionError(f"[randk] step {s} {w}: indices not "
+                                     f"{k} distinct")
+            c = corrected.pop(w)
+            sent = torch.zeros(n, device="cuda").index_add_(0, idx, c[idx])
+            if not torch.equal(red._residuals[w] + sent, c):
+                raise AssertionError(f"[randk] step {s} {w}: scatter(vals) "
+                                     f"+ res != g + r")
+            if row == 0:
+                sel = torch.sort(idx).values
+                if prev is not None and torch.equal(sel, prev):
+                    raise AssertionError(f"[randk] step {s}: the same mask "
+                                         f"as step {s - 1}")
+                prev = sel
+                # the CPU's draw on a prefix slice: the same scores, and
+                # the same picks at or above the card's k-th largest score
+                scores = randk_scores(key, n, "cuda")
+                cut = scores[idx[-1]].cpu()
+                cpu = randk_scores(key, RANDK_SLICE, "cpu")
+                picks = torch.sort(idx[idx < RANDK_SLICE]).values.cpu()
+                if not torch.equal(scores[:RANDK_SLICE].cpu(), cpu) or \
+                        not torch.equal(torch.nonzero(cpu >= cut)
+                                        .reshape(-1), picks):
+                    raise AssertionError(f"[randk] step {s}: card and CPU "
+                                         f"draws differ on [0, "
+                                         f"{RANDK_SLICE})")
+                slice_checked += picks.numel()
+                del scores
+    peak = torch.cuda.max_memory_allocated()
+    if red.last_wire_bytes != 4 * 8 * k or \
+            not bool(torch.isfinite(red.flat_params).all()):
+        raise AssertionError(f"[randk] wire bytes {red.last_wire_bytes} != "
+                             f"{4 * 8 * k} or non-finite params")
+    del red, corrected
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"n": n, "k": k, "step_ms": step_ms, "peak_mem_bytes": peak,
+           "slice_picks_compared": slice_checked}
+    print(f"[randk] {ARCH} flat buffer n={n}, 4 workers, frac 1/128 (k "
+          f"{k}): 3 reduce steps {', '.join(f'{x:.1f}' for x in step_ms)} "
+          f"ms (host, synced; one row's hash draw and selection at a "
+          f"time); every row k distinct indices, scatter(vals) + res == g + "
+          f"r bit for bit, masks new each step, card = CPU on the first "
+          f"{RANDK_SLICE} scores ({slice_checked} picks); peak mem "
+          f"{peak / 2**30:.2f} GiB | {card}")
+    return res
+
+
+def dense_masks(red, msgs, step: int) -> list:
+    """The leaf-wise channel's masks for this reduce step, per worker in
+    sorted order, per leaf: what ``roundtrip`` will select."""
+    comp = red.compressor
+    out = []
+    for w in sorted(msgs):
+        leaves = [x.float() for x in tree_leaves(msgs[w][0])]
+        res = red._residuals.get(w)
+        if res is not None:
+            leaves = [x + r for x, r in zip(leaves, tree_leaves(res))]
+        out.append([comp._mask_leaf(x, comp.flat_key(step, i))
+                    for i, x in enumerate(leaves)])
+    return out
+
+
+def phase_dense_reduce(card: str) -> dict:
+    """MasterReducer(fused=False) at the reduced LM: uncompressed against
+    the fused path; topk / blocktopk / randk card against CPU."""
+    from repro_torch.core.flatbuf import build_tree
+
+    small = get_config(ARCH).reduced()
+    base = tf.init_params(small, seed=0, device="cpu")
+    paths = flat_spec(base).paths
+    rng = np.random.RandomState(5)
+    steps = [{f"w{i}": ([rng.randn(*x.shape).astype(np.float32)
+                         for x in tree_leaves(base)], 100 + i)
+              for i in range(4)} for _ in range(3)]
+
+    def on(dev):
+        return [{w: (build_tree(paths, [torch.tensor(a).to(dev) for a in g]),
+                     n) for w, (g, n) in st.items()} for st in steps]
+
+    # uncompressed: dense = fused within the JAX package's pin, 1e-5
+    dense = MasterReducer(tf.init_params(small, seed=0, device="cuda"),
+                          adagrad(lr=0.02), fused=False)
+    fused = MasterReducer(tf.init_params(small, seed=0, device="cuda"),
+                          adagrad(lr=0.02))
+    for msgs in on("cuda"):
+        dense.reduce_and_step(msgs)
+        fused.reduce_and_step(msgs)
+    err = float((dense.flat_params - fused.flat_params).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"[dense-reduce] dense vs fused {err:.2e}")
+    out = {"dense_vs_fused": err}
+    for method, frac in DENSE_CHANNELS:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            red = MasterReducer(tf.init_params(small, seed=0, device=dev),
+                                adagrad(lr=0.02),
+                                GradientCompressor(method, frac=frac),
+                                fused=False)
+            masks, wire = [], []
+            for s, msgs in enumerate(on(dev)):
+                masks.append(dense_masks(red, msgs, s))
+                red.reduce_and_step(msgs)
+                wire.append(dict(red.last_per_worker_bytes))
+            runs[dev] = (red, masks, wire)
+        for s, (a, b) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
+            for wa, wb in zip(a, b):
+                if not all(torch.equal(ma.cpu(), mb)
+                           for ma, mb in zip(wa, wb)):
+                    raise AssertionError(f"[dense-reduce] {method} step {s}: "
+                                         f"card and CPU masks differ")
+        if runs["cuda"][2] != runs["cpu"][2]:
+            raise AssertionError(f"[dense-reduce] {method} wire bytes "
+                                 f"{runs['cuda'][2]} vs {runs['cpu'][2]}")
+        d = float((runs["cuda"][0].flat_params.cpu()
+                   - runs["cpu"][0].flat_params).abs().max())
+        if d > 1e-6:
+            raise AssertionError(f"[dense-reduce] {method} params {d:.2e} "
+                                 f"apart")
+        out[method] = {"params_max_abs": d, "wire": runs["cuda"][2][-1],
+                       "kept_step0_w0": sum(int(m.sum())
+                                            for m in runs["cuda"][1][0][0])}
+    print(f"[dense-reduce] {ARCH}.reduced() ({dense.flat_n} parameters), "
+          f"MasterReducer(fused=False), 4 workers, 3 AdaGrad steps: "
+          f"uncompressed = fused within {err:.1e} (pin 1e-5); "
+          + "; ".join(f"{m} {f:g}: masks and wire bytes "
+                      f"({out[m]['wire']['w0']} B a worker) card = CPU, "
+                      f"params within {out[m]['params_max_abs']:.1e}"
+                      for m, f in DENSE_CHANNELS) + f" | {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # slice 3: the public kernel API at full width
 # ---------------------------------------------------------------------------
 # flash_attention: mlitb-lm-100m's prefill over the served engine's 16
@@ -2447,6 +2948,13 @@ def main() -> int:
     train_lm = phase_train_lm(card)
     ts = phase_train_serve(card)
     ts_small = phase_train_serve_small(card)
+    slice9 = {}
+    for name, fn in (("hier", phase_hier), ("hier-small", phase_hier_small),
+                     ("randk", phase_randk),
+                     ("dense-reduce", phase_dense_reduce)):
+        t9 = time.perf_counter()
+        slice9[name] = fn(card)
+        slice9[name]["seconds"] = time.perf_counter() - t9
     main_api = phase_api(card)
     fa = phase_flash_attention(card, main_api)
     ssd = phase_ssd(card, main_api)
@@ -2479,6 +2987,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/topk_compress/topk_compress.py:51",
          "launches": train["launches"],
          "launches_adaptive_keep": train_lm["keep_launches"],
+         "launches_hierarchy": slice9["hier-small"]["launches"],
          "max_abs_err": max(fused["max_abs_err"], lm["max_abs_err"]),
          "ms": demo["ms"], "plain_ms": demo["plain_ms"],
          "bound_ms": demo["bound_ms"], "bound_by": demo["bound_by"],
@@ -2529,7 +3038,8 @@ def main() -> int:
          "fused_compress": fused, "serve": srv, "serve_spec": spec,
          "oneshot": oneshot, "train": train,
          "reduce_lm": lm, "train_lm": train_lm, "train_serve": ts,
-         "train_serve_small": ts_small, "api_launches": launches,
+         "train_serve_small": ts_small, "slice9": slice9,
+         "api_launches": launches,
          "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
          "total_s": time.perf_counter() - t_start},
@@ -2538,7 +3048,10 @@ def main() -> int:
               ts_small["speculative"]["seconds"])
     print(f"[done] {time.perf_counter() - t_start:.1f} s; slice 8's phases "
           f"{sum(slice8):.1f} s (serve-spec {slice8[0]:.1f}, oneshot "
-          f"{slice8[1]:.1f}, speculative train-serve-small {slice8[2]:.1f})")
+          f"{slice8[1]:.1f}, speculative train-serve-small {slice8[2]:.1f}); "
+          f"slice 9's {sum(v['seconds'] for v in slice9.values()):.1f} s ("
+          + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice9.items())
+          + ")")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

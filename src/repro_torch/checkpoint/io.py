@@ -224,15 +224,24 @@ def serving_params_from_train_state(state: Any, template: PyTree
     param tree of the run's architecture on the target device (an
     ``init_params`` output will do): its layout unflattens the reducer's
     flat fp32 buffer into model shapes and dtypes, and its device is
-    where the params land."""
+    where the params land.
+
+    For a two-tier ``HierarchicalMaster`` snapshot the served model is the
+    CONSENSUS — the mean of the live regions' flat buffers, summed in
+    sorted order — and the version is the deepest region's step."""
     if isinstance(state, str):
         state = load_train_state(state)
-    if "regions" in state.loop and "reducer" not in state.loop:
-        raise NotImplementedError(
-            "a two-tier (HierarchicalMaster) snapshot: the hierarchy is "
-            "not ported yet (ROADMAP A5)")
     pairs = list(tree_paths(template))
     dev = pairs[0][1].device
+    if "regions" in state.loop and "reducer" not in state.loop:
+        live = sorted(str(r) for r in state.loop["active"])
+        flats = [np.asarray(state.loop["regions"][r]["reducer"]["flat"],
+                            np.float32) for r in live]
+        consensus = np.mean(np.stack(flats, 0), axis=0)
+        params = flat_spec(template).unflatten(
+            torch.as_tensor(consensus).to(dev))
+        step = max(int(state.loop["regions"][r]["step"]) for r in live)
+        return params, step
     red = state.loop["reducer"]
     if red["fused"]:
         flat = torch.as_tensor(np.asarray(red["flat"], np.float32)).to(dev)

@@ -7,11 +7,10 @@ constructor argument of ``MasterEventLoop``.
                     a consumer every N iterations)
   GuardrailConfig   the NaN/divergence watchdog knobs (from
                     core/guardrails.py)
+  HierarchyConfig   two-tier sub-master topology + WAN gossip
+                    (core/hierarchy.py)
 
-``TrainingConfig`` also carries ``hierarchy``; the port has no two-tier
-hierarchy yet, so a non-``None`` value raises ``NotImplementedError``
-naming ROADMAP A5. All validation happens at construction and names the
-offending value.
+All validation happens at construction and names the offending value.
 """
 from __future__ import annotations
 
@@ -55,6 +54,43 @@ class PublishConfig:
                 f"publish_every={self.every} must be >= 0 (0 disables)")
 
 
+@dataclass(frozen=True)
+class HierarchyConfig:
+    """Two-tier sub-master topology (core/hierarchy.py): ``n_regions``
+    regional sub-masters each run the deadline/compressed fused reduce
+    over their own fleet for ``inner_steps`` (H) iterations, then a
+    local-SGD-style outer step gossips model deltas between sub-masters —
+    pairwise averaging over a seeded random matching, compressed through
+    the packed ``CompressedMessage`` error-feedback channel so only H-step
+    deltas cross the WAN."""
+    n_regions: int = 1
+    inner_steps: int = 4            # H: sub-master reduces per outer step
+    gossip: bool = True             # pairwise WAN averaging at the boundary
+    gossip_frac: float = 0.05       # top-k keep fraction of the WAN channel
+    gossip_lr: float = 1.0          # outer step size toward the pair mean
+    gossip_seed: int = 0            # the matching RNG stream
+
+    def __post_init__(self):
+        if self.n_regions < 1:
+            raise ValueError(
+                f"n_regions={self.n_regions} must be >= 1")
+        if self.inner_steps < 1:
+            raise ValueError(
+                f"inner_steps={self.inner_steps} must be >= 1 (H local "
+                f"reduces between gossip rounds)")
+        if self.gossip and self.n_regions < 2:
+            raise ValueError(
+                f"n_regions={self.n_regions} with gossip enabled: pairwise "
+                f"averaging needs >= 2 regions (set gossip=False for a "
+                f"single-region hierarchy)")
+        if not 0.0 < self.gossip_frac <= 1.0:
+            raise ValueError(
+                f"gossip_frac={self.gossip_frac} must lie in (0, 1]")
+        if not 0.0 < self.gossip_lr <= 1.0:
+            raise ValueError(
+                f"gossip_lr={self.gossip_lr} must lie in (0, 1]")
+
+
 @dataclass(frozen=True, eq=False)   # eq=False: guardrails/fn members
 class TrainingConfig:
     """Everything ``MasterEventLoop`` needs beyond its live components
@@ -68,7 +104,7 @@ class TrainingConfig:
     deadline: DeadlineConfig = field(default_factory=DeadlineConfig)
     publish: PublishConfig = field(default_factory=PublishConfig)
     guardrails: Optional[Any] = None    # GuardrailConfig | TrainingGuardrails
-    hierarchy: Optional[Any] = None
+    hierarchy: Optional[HierarchyConfig] = None
 
     def __post_init__(self):
         if self.T <= 0.0:
@@ -79,10 +115,6 @@ class TrainingConfig:
             raise ValueError(
                 f"guardrails={self.guardrails!r}: expected GuardrailConfig "
                 f"or TrainingGuardrails")
-        if self.hierarchy is not None:
-            raise NotImplementedError(
-                "the two-tier sub-master hierarchy is not ported yet "
-                "(ROADMAP A5)")
 
     def resolve_guardrails(self) -> Optional[TrainingGuardrails]:
         """The live watchdog instance this config asks for (None = trust
@@ -100,7 +132,7 @@ class TrainingConfig:
                   publish_every: int = 0,
                   publish_fn: Optional[Callable] = None,
                   guardrails: Optional[Any] = None,
-                  hierarchy: Optional[Any] = None
+                  hierarchy: Optional[HierarchyConfig] = None
                   ) -> "TrainingConfig":
         """Build a grouped config from the historical flat kwargs."""
         return cls(

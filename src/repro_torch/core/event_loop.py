@@ -147,15 +147,18 @@ class MasterEventLoop:
 
     # ------------------------------------------------------------------
     def _predicted_wire_bytes(self, worker: str,
-                              keep: Optional[Dict[str, int]]) -> int:
+                              keep: Optional[Dict[str, int]],
+                              grad: PyTree) -> int:
         """Exact bytes the reducer will account for this worker's message
         — computable BEFORE the reduce, so upload time participates in the
         deadline classification."""
         red = self.reducer
         if red.compressor is None:
             return 4 * red.flat_n
-        return 8 * red.compressor.flat_k(red.flat_n,
-                                         (keep or {}).get(worker))
+        if red.fused:
+            return 8 * red.compressor.flat_k(red.flat_n,
+                                             (keep or {}).get(worker))
+        return red.compressor.wire_bytes(grad)
 
     def iteration(self) -> IterationLog:
         notes = self._process_events()                           # (a),(b)
@@ -228,7 +231,7 @@ class MasterEventLoop:
         finishes: Dict[str, float] = {}
         upload_fn = getattr(self.cluster, "upload_time", None)
         for w, r in results.items():
-            nbytes = (self._predicted_wire_bytes(w, keep)
+            nbytes = (self._predicted_wire_bytes(w, keep, messages[w][0])
                       if w in messages and has_grads else 0)
             t_up = (upload_fn(w, nbytes)
                     if upload_fn is not None and nbytes else 0.0)
@@ -272,13 +275,25 @@ class MasterEventLoop:
                         # refresh the last-good snapshot BEFORE stepping
                         self.guardrails.observe_healthy(loss)
                         self.guardrails.snapshot(self.reducer)
-                    # late workers ride the reduce live-masked to zero;
-                    # their corrected gradient parks in their residual
-                    self.reducer.reduce_and_step(messages, keep=keep,
-                                                 defer=late_msgs)
+                    if self.reducer.fused:
+                        # late workers ride the reduce live-masked to
+                        # zero; their corrected gradient parks in their
+                        # residual
+                        self.reducer.reduce_and_step(messages, keep=keep,
+                                                     defer=late_msgs)
+                    else:
+                        # dense path: keep late mass in the residual when
+                        # a compressor channel exists, else drop it
+                        if self.reducer.compressor is not None:
+                            for w in late_msgs:
+                                self.reducer.defer_to_residual(
+                                    w, messages[w][0])
+                        self.reducer.reduce_and_step(
+                            {w: m for w, m in messages.items()
+                             if w not in late}, keep=keep)
                     wire_bytes = self.reducer.last_wire_bytes
                     per_bytes = dict(self.reducer.last_per_worker_bytes)
-            else:
+            elif self.reducer.supports_defer:
                 # every reply missed the deadline: no update this
                 # iteration, but none of the mass is lost
                 for w in late_msgs:

@@ -6,7 +6,10 @@ Reproduces the experimental setting of MLitB §3.5 on one machine:
     power (vectors/sec) and base latency distributions;
   - a single-master congestion model: at the end of each iteration ALL
     workers send their gradient simultaneously, so per-message service
-    time queues behind N-1 other messages;
+    time queues behind N-1 other messages; a worker assigned to a region
+    (``add_worker(region=)``) queues only behind its own region's fleet
+    at that region's sub-master, and ``RegionalNetworkModel`` prices the
+    slow cross-region links the two-tier hierarchy's gossip crosses;
   - worker churn, straggler modes (``straggle_p``/``straggle_factor`` and
     the scripted ``straggle``), mid-iteration death (``kill`` and the
     per-profile ``reliability`` draw) and seeded fault injection
@@ -23,9 +26,7 @@ same latencies, deaths, faults and subset choices. ``state_dict`` /
 
 ``ServeCostModel`` is the serving clock's cost model;
 ``generate_requests`` (the serving workload) lives in
-``repro_torch.serving.requests``. The hierarchy's pieces
-(``RegionalNetworkModel`` and region-scoped congestion, ROADMAP A5) are
-not ported yet: every worker here queues at the one master.
+``repro_torch.serving.requests``.
 """
 from __future__ import annotations
 
@@ -120,6 +121,22 @@ class NetworkModel:
         return n_workers * self.grad_bytes / self.master_bw * 0.25
 
 
+@dataclass(frozen=True)
+class RegionalNetworkModel(NetworkModel):
+    """Region-structured bandwidth: the base ``NetworkModel`` fields
+    describe the INTRA-region fast path (each regional sub-master ingests
+    only its own fleet, so congestion queues are region-scoped), while
+    ``wan_bw``/``wan_latency`` price the slow cross-region links that only
+    the H-step gossip deltas traverse (a ~10x intra/inter asymmetry)."""
+    wan_bw: float = 4e6              # bytes/sec on a cross-region link
+    wan_latency: float = 0.080       # one-way cross-region latency (s)
+
+    def wan_time(self, nbytes: float) -> float:
+        """Seconds one gossip message of ``nbytes`` spends crossing the
+        WAN (transfer + propagation)."""
+        return float(nbytes) / self.wan_bw + self.wan_latency
+
+
 @dataclass
 class SimWorker:
     worker: str
@@ -168,9 +185,14 @@ class SimulatedCluster:
         self._faults: Dict[str, FaultProfile] = {}
         self._poison: Dict[str, List[Any]] = {}
         self._last_reply: Dict[str, Tuple[PyTree, int, float]] = {}  # reprolint: exempt[RL005]
+        # two-tier topology: worker -> region label. Unassigned workers
+        # congest globally (the flat master, bit-exact); assigned workers
+        # queue only behind their own region's fleet
+        self._regions: Dict[str, str] = {}
 
     # ------------------------------------------------------------------
-    def add_worker(self, worker: str, profile: DeviceProfile) -> None:
+    def add_worker(self, worker: str, profile: DeviceProfile,
+                   region: Optional[str] = None) -> None:
         # a rejoining tab starts clean: scripted stalls/kills/poison
         # aimed at a previous incarnation of this name must not leak
         # onto it
@@ -181,6 +203,10 @@ class SimulatedCluster:
         self.workers[worker] = SimWorker(
             worker, profile,
             np.random.RandomState(self._rng.randint(2 ** 31)))
+        if region is None:
+            self._regions.pop(worker, None)
+        else:
+            self._regions[worker] = region
 
     def set_faults(self, worker: str,
                    faults: Optional[FaultProfile]) -> None:
@@ -217,6 +243,20 @@ class SimulatedCluster:
         if kind not in ("nan", "inf", "garbage", "stale", "drop"):
             raise ValueError(f"unknown poison kind {kind!r}")
         self._poison[worker] = [kind, int(iters)]
+
+    # ------------------------------------------------------------------
+    def _congestion_peers(self, worker: str) -> int:
+        """How many simultaneous reduce-step messages queue with this
+        worker's: the whole fleet at a flat master, only the same-region
+        fleet once the worker reports to a regional sub-master."""
+        region = self._regions.get(worker)
+        if region is None:
+            return len(self.workers)
+        return sum(1 for w in self.workers
+                   if self._regions.get(w) == region)
+
+    def region_of(self, worker: str) -> Optional[str]:
+        return self._regions.get(worker)
 
     # ------------------------------------------------------------------
     def _sample_latency(self, sw: SimWorker, n_live: int) -> float:
@@ -293,7 +333,7 @@ class SimulatedCluster:
             return None                                   # scripted death
         if sw.rng.rand() > sw.profile.reliability:
             return None                                   # tab closed mid-run
-        n_live = len(self.workers)    # the whole fleet queues at the master
+        n_live = self._congestion_peers(worker)
         n_possible = int(sw.profile.power_vps * budget)
         n = min(n_possible, len(indices)) if indices else 0
         latency = self._sample_latency(sw, n_live)
@@ -374,6 +414,7 @@ class SimulatedCluster:
             "faults": {w: dataclasses.asdict(fp)
                        for w, fp in self._faults.items()},
             "poison": {w: list(v) for w, v in self._poison.items()},
+            "regions": dict(self._regions),
             "workers": {w: {"profile": dataclasses.asdict(sw.profile),
                             "rng": self._rng_state(sw.rng)}
                         for w, sw in self.workers.items()},
@@ -391,6 +432,10 @@ class SimulatedCluster:
         self._faults = {w: FaultProfile(**d) for w, d in st["faults"].items()}
         self._poison = {w: [str(v[0]), int(v[1])]
                         for w, v in st["poison"].items()}
+        # lenient, as the JAX package's: a snapshot without the map is a
+        # flat topology
+        self._regions = {w: str(r)
+                         for w, r in st.get("regions", {}).items()}
         self._last_reply = {}
         self.workers = {}
         for w, d in st["workers"].items():

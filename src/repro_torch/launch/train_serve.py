@@ -34,8 +34,10 @@ deadline partial participation.
 init, so acceptance is low, while the output stays the exact greedy
 stream.
 
-Not ported yet: the two-tier hierarchy (``TrainingConfig(hierarchy=)``,
-ROADMAP A5).
+With ``TrainingConfig(hierarchy=)`` ``build_training`` builds the two-tier
+hierarchy instead (``core/hierarchy.py``): one sub-master per region over
+a 1/R shard of the data, the same fleet in every region, publishing on
+the outer tier.
 """
 from __future__ import annotations
 
@@ -83,7 +85,11 @@ def build_training(cfg, *, training=None, seed: int = 0,
     """An elastic training stack over ``cfg``'s LM on ``device``: fused
     top-k compressed reduce, deadline partial participation, and (when
     ``churny``) a heterogeneous fleet with a probabilistic straggler.
-    Returns ``(MasterEventLoop, cluster, params)``.
+    Returns ``(MasterEventLoop, cluster, params)``; when
+    ``training.hierarchy`` is set, ``(HierarchicalMaster, cluster,
+    params)``: ``n_regions`` sub-masters over one shared region-aware
+    cluster, region ``r{i}`` running this fleet (workers ``r{i}:w{j}``)
+    on the data shard ``range(i, n_data, R)``.
 
     ``training=TrainingConfig(...)`` is the construction surface; the
     historical flat kwargs (T/publish_every/publish_fn/guardrails) still
@@ -94,9 +100,12 @@ def build_training(cfg, *, training=None, seed: int = 0,
     ``optimizer`` replaces AdaGrad(lr) (plain SGD lets a garbage
     gradient actually diverge the params)."""
     from repro_torch.core import (AdaptiveScheduler, GradientCompressor,
-                                  JoinEvent, MasterEventLoop, MasterReducer,
+                                  HierarchicalMaster, JoinEvent,
+                                  MasterEventLoop, MasterReducer,
                                   TrainingConfig, UploadDataEvent)
-    from repro_torch.core.simulation import SimulatedCluster, make_lm_problem
+    from repro_torch.core.simulation import (RegionalNetworkModel,
+                                             SimulatedCluster,
+                                             make_lm_problem)
     from repro_torch.kernels.runtime import resolve_device
     from repro_torch.models import transformer as tf
     from repro_torch.optim import adagrad
@@ -124,23 +133,55 @@ def build_training(cfg, *, training=None, seed: int = 0,
                                       seed=seed, device=dev)
     params = (tf.init_params(cfg, seed=seed, device=dev)
               if init_params is None else init_params)
-    reducer = MasterReducer(params, optimizer or adagrad(lr=lr),
-                            compressor=GradientCompressor("topk", frac=frac),
-                            fused=True)
-    cluster = SimulatedCluster(grad_fn=grad_fn, data=(X, y), mode="real",
-                               seed=seed, device=dev)
-    loop = MasterEventLoop(
-        reducer=reducer, cluster=cluster,
-        scheduler=AdaptiveScheduler(T=training.T, prior_power=300.0,
-                                    min_budget=0.05),
-        training=training)
-    loop.submit(UploadDataEvent(range(n_data)))
-    for i, prof in enumerate(_fleet_profiles(churny)):
-        cluster.add_worker(f"w{i}", prof)
-        loop.submit(JoinEvent(f"w{i}", capacity=n_data))
+    hier = training.hierarchy
+
+    def make_loop(inner):
+        reducer = MasterReducer(params, optimizer or adagrad(lr=lr),
+                                compressor=GradientCompressor("topk",
+                                                              frac=frac),
+                                fused=True)
+        return MasterEventLoop(
+            reducer=reducer, cluster=cluster,
+            scheduler=AdaptiveScheduler(T=training.T, prior_power=300.0,
+                                        min_budget=0.05),
+            training=inner)
+
+    network = RegionalNetworkModel() if hier is not None else None
+    cluster = SimulatedCluster(
+        grad_fn=grad_fn, data=(X, y), mode="real", seed=seed, device=dev,
+        **({"network": network} if network is not None else {}))
+    profiles = _fleet_profiles(churny)
+
+    if hier is None:
+        loop = make_loop(training)
+        loop.submit(UploadDataEvent(range(n_data)))
+        for i, prof in enumerate(profiles):
+            cluster.add_worker(f"w{i}", prof)
+            loop.submit(JoinEvent(f"w{i}", capacity=n_data))
+        for w, fp in (fault_profiles or {}).items():
+            cluster.set_faults(w, fp)
+        return loop, cluster, params
+
+    # two-tier branch: publishing moves to the OUTER tier (the consensus
+    # is what serving should see); each sub-master runs the same deadline
+    # and guardrail config over its own fleet and shard
+    inner = TrainingConfig(T=training.T, deadline=training.deadline,
+                           guardrails=training.guardrails)
+    regions = {}
+    for ri in range(hier.n_regions):
+        name = f"r{ri}"
+        loop = make_loop(inner)
+        loop.submit(UploadDataEvent(range(ri, n_data, hier.n_regions)))
+        for i, prof in enumerate(profiles):
+            w = f"{name}:w{i}"
+            cluster.add_worker(w, prof, region=name)
+            loop.submit(JoinEvent(w, capacity=n_data))
+        regions[name] = loop
     for w, fp in (fault_profiles or {}).items():
         cluster.set_faults(w, fp)
-    return loop, cluster, params
+    master = HierarchicalMaster(regions=regions, config=hier,
+                                publish=training.publish, network=network)
+    return master, cluster, params
 
 
 def run_train_serve(cfg, requests: Sequence[Any], *,

@@ -5,8 +5,8 @@
 maxima, as ``jnp.argmax``). Otherwise each row's draw is a Gumbel-max over
 ``logits / temperature`` whose noise comes from a counter-based integer
 hash of (``seed``, request id, generated-token index, vocabulary index):
-plain tensor ops, no ``torch.Generator`` state. So a row's draw depends
-only on those four and its own logits — a request sampled alone equals
+plain tensor ops (``repro_torch.counter_hash``), no ``torch.Generator``
+state. So a row's draw depends only on those four and its own logits — a request sampled alone equals
 itself in any batch, and the CPU and the card draw the same token from
 equal logits (the hash is exact integer arithmetic; the noise and the
 scores are float64).
@@ -21,25 +21,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.counter_hash import M32 as _M32
+from repro_torch.counter_hash import mix32
+
 NEG_INF = -1e30
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``(x * c) mod 2**32`` for int64 ``x`` in ``[0, 2**32)``, in two
-    16-bit halves so no intermediate leaves int64's range."""
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
-
-
-def mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (lowbias32) on int64 tensors holding
-    values in ``[0, 2**32)``."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
 
 
 def gumbel_noise(seed: int, rids: torch.Tensor, gidx: torch.Tensor,

@@ -227,9 +227,18 @@ def test_corrupt_files_and_mismatches_raise(tmp_path, jax_side):
     with pytest.raises(TypeError, match="object array"):
         io.save_train_state(str(tmp_path / "o.npz"), io.TrainState(
             loop={"x": np.array([object()])}))
-    two_tier = io.TrainState(loop={"regions": {}, "active": []})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        io.serving_params_from_train_state(two_tier, template)
+    # a two-tier snapshot (A5) serves the live regions' mean buffer at the
+    # deepest region's step; a parked region is left out
+    from repro_torch.core.flatbuf import flat_spec
+    base = flat_spec(template).flatten(template).numpy()
+    two_tier = io.TrainState(loop={"active": ["r1", "r0"], "regions": {
+        r: {"step": s, "reducer": {"fused": True, "flat": base * m}}
+        for r, s, m in (("r0", 3, 1.0), ("r1", 5, 3.0), ("r2", 9, 7.0))}})
+    params, step = io.serving_params_from_train_state(two_tier, template)
+    assert step == 5
+    for x, y in zip(tree_leaves(params), tree_leaves(flat_spec(
+            template).unflatten(torch.as_tensor((base + base * 3.0) / 2)))):
+        assert np.array_equal(x.numpy(), y.numpy())
     # a dense (non-fused) reducer's leaf list maps onto the template
     leaves = [x.numpy() * 2 for x in tree_leaves(template)]
     dense = io.TrainState(loop={"step": 2, "reducer": {

@@ -219,8 +219,15 @@ def test_build_training_defaults_and_construction_surface():
     assert loop.scheduler.T == 0.3 and loop.guardrails is not None
     with pytest.raises(ValueError, match="not both"):
         build_training(cfg, training=TrainingConfig(), T=0.3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        TrainingConfig(hierarchy=object())
+    # the two-tier branch (A5): one sub-master per region, the same fleet
+    from repro_torch.core import HierarchicalMaster, HierarchyConfig
+    master, cluster, _ = build_training(cfg, training=TrainingConfig(
+        hierarchy=HierarchyConfig(n_regions=2)), device="cpu")
+    assert isinstance(master, HierarchicalMaster)
+    assert master.live_regions == ["r0", "r1"]
+    assert sorted(cluster.workers) == [f"r{r}:w{i}" for r in range(2)
+                                       for i in range(4)]
+    assert cluster.region_of("r1:w3") == "r1"
 
 
 def test_launcher_simulate_reduced_on_cpu(jax_run, capsys):
@@ -237,9 +244,14 @@ def test_launcher_simulate_reduced_on_cpu(jax_run, capsys):
     first, last = (float(x) for x in out[-1].split("loss ")[1].split(" -> "))
     assert np.isfinite(first) and np.isfinite(last)
     assert "host ms per iteration" not in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        t_train.main(["--simulate", "--reduced", "--regions", "2",
-                      "--device", "cpu"])
+    # --regions > 1 trains the two-tier hierarchy (A5)
+    assert t_train.main(["--simulate", "--reduced", "--regions", "2",
+                         "--steps", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-2].startswith("hierarchy: 2 regions x 4 inner, 1 outer "
+                              "steps, clock=")
+    assert out[-1].startswith("wan: ") and out[-1].endswith(
+        "comm ratio 0.250")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         t_train.main(["--reduced", "--device", "cpu"])
 

@@ -297,7 +297,16 @@ def test_decompress_drops_out_of_range_indices():
 
 
 def test_unported_methods_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        GradientCompressor("randk").compress_flat(torch.zeros(8), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        GradientCompressor("topk").roundtrip({}, None)
+    """randk on the flat path and the leaf-wise roundtrip are ported (A4):
+    randk keeps k distinct entries, the roundtrip's topk mask is the JAX
+    package's; an unknown method still raises."""
+    g = torch.arange(8.0) - 3.5
+    msg, res = GradientCompressor("randk", frac=0.25).compress_flat(g, None)
+    assert len(set(msg.indices.tolist())) == 2
+    assert torch.equal(msg.dense() + res, g)
+    sent, _ = GradientCompressor("topk", frac=0.25).roundtrip({"x": g}, None)
+    jsent, _ = JComp("topk", frac=0.25).roundtrip(
+        {"x": jnp.asarray(g.numpy())}, None)
+    assert _same(np.asarray(jsent["x"]), sent["x"].numpy())
+    with pytest.raises(ValueError):
+        GradientCompressor("bogus").compress_flat(g, None)

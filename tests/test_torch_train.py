@@ -292,10 +292,14 @@ def test_reducer_other_channels_match(comp):
 
 def test_unported_training_options_raise():
     p = {"w": torch.zeros(4)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        MasterReducer(p, get_optimizer("sgd"), fused=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        TrainingConfig(hierarchy=object())
+    # the dense reducer (A4) and the two-tier hierarchy (A5) are ported
+    dense = MasterReducer(p, get_optimizer("sgd"), fused=False)
+    assert not dense.fused and dense.params is p
+    from repro_torch.core import HierarchyConfig
+    hier = HierarchyConfig(n_regions=2)
+    assert TrainingConfig(hierarchy=hier).hierarchy is hier
+    with pytest.raises(ValueError, match="n_regions=1 with gossip enabled"):
+        HierarchyConfig(n_regions=1)
     from repro_torch.launch import train, train_serve
     # the train->serve loop (A7) and its speculative decoding (C4) are
     # ported: a bad speculative setting meets the reference's validation
