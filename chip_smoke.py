@@ -134,6 +134,38 @@ result):
    uncompressed within 1e-5 of the fused path; topk, blocktopk and randk
    channels card = CPU in masks and wire bytes bit for bit, params
    within 1e-6;
+9f. moe (slice 10) — ``llama4-scout-17b-a16e`` at full width (d 5120,
+   40/8 heads of 128, 16 experts top-1 + the shared expert, vocab
+   202 048, bf16; depth cut to 4 of 48 layers, ~21.8 GB) through the
+   paged engine (16-token pages, 16 x 256) on
+   ``launch.serve``'s schedule sized to 256 (32 requests, seed 1) with
+   flash decode: flash_decode launched 4 x decode dispatches (counters
+   reset just before, read just after); the schedule again, flash and
+   plain decode, recording each decode step's top-2 logits and every
+   layer's router top-2 probabilities: streams equal up to the first
+   flip, which must be a near tie in both runs (a token flip: top-2
+   logit gaps < 0.1; a routing flip: router gaps < 1e-2), over a
+   nonzero count of tokens, drift printed; the kernel on the captured
+   live step's every layer against its plain version (3e-2, 2^-6 a
+   row) and timed there beside its bound, plain version and SDPA; ms
+   per decode step, tokens/s, init seconds, peak memory;
+9g. moe-small — ``llama4-scout-17b-a16e.reduced()`` and
+   ``arctic-480b.reduced()`` (top-2, dense residual), f32: init equal on
+   card and CPU; engine streams card = CPU, dense and paged; the sort
+   dispatch = the einsum one; a dense and a MoE 1-layer draft = the
+   greedy stream; capacity factor 1.0 (tokens drop) card = CPU, drop
+   counts equal;
+9h. ssm / hybrid — ``mamba2-780m`` (48 layers, d 1536) and ``zamba2-7b``
+   (13 supers of 5 SSM + 1 attention, 3 tail layers, d 3584) at full
+   width and depth through the launcher's single-shot path
+   (``_serve_oneshot``: 4 x 24 prompts, 12 generated): in bf16 timed
+   (prefill ms, ms per lockstep step, peak memory) with its drift from
+   the growing forward printed; in float32 the tokens = a cacheless
+   greedy ``forward`` over the growing sequence up to the first near
+   tie (gaps < 1e-2; the recurrent decode with its conv ring against
+   the chunked scan);
+9i. ssm-small — both ``.reduced()``, f32: single-shot tokens card = CPU,
+   logits within 1e-4;
 10. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
@@ -160,14 +192,18 @@ Details go to ``chiprun_out/chip_smoke.json``. Imports ``torch``,
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib
+import io
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -207,13 +243,15 @@ from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
 from repro_torch.launch.train import run_hierarchy, run_lm  # noqa: E402
 from repro_torch.launch.train_serve import (build_training,  # noqa: E402
                                             run_train_serve)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+import repro_torch.launch.serve as serve_mod  # noqa: E402
 import repro_torch.optim as optim  # noqa: E402
 from repro_torch.optim import adagrad, sgd  # noqa: E402
 from repro_torch.models.attention import _pow2_kv_block  # noqa: E402
 from repro_torch.serving import (PagingConfig, ServeRequest,  # noqa: E402
                                  ServingConfig, ServingEngine,
-                                 generate_requests)
+                                 SpeculativeConfig, generate_requests)
 
 ARCH = "mlitb-lm-100m"
 # the served engine: paged pool, 16-token pages, 16 slots of 512 tokens
@@ -493,7 +531,7 @@ def time_flash_decode(case: dict, card: str) -> dict:
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "flops": flops, "live_tokens": live_tok}
     print(f"[kernel] flash_decode timing (B={B} H={H} K={K} D={D} ps={ps} "
-          f"P={P}, {live_tok} live tokens, f32): kernel "
+          f"P={P}, {live_tok} live tokens, {str(q.dtype)[6:]}): kernel "
           f"{res['ms'] * 1e3:.1f} us/launch from CUDA graphs ({ms * 1e3:.1f},"
           f" {ms2 * 1e3:.1f}), {eager_ms * 1e3:.1f} us called eagerly "
           f"({host_us:.1f} us of host time per call); "
@@ -687,7 +725,6 @@ def perfect_schedule(cfg):
 
 
 def phase_serve_spec(card: str, srv: dict, serve_streams: dict) -> dict:
-    from repro_torch.serving import SpeculativeConfig
     cfg = get_config(ARCH)
     params = tf.init_params(cfg, seed=0, device="cuda")
     reqs = schedule(cfg)
@@ -772,7 +809,6 @@ def phase_serve_spec(card: str, srv: dict, serve_streams: dict) -> dict:
 
 
 def phase_oneshot(card: str) -> dict:
-    import repro_torch.launch.serve as serve_mod
     cfg = get_config(ARCH)
     params = tf.init_params(cfg, seed=0, device="cuda")
     rng = np.random.RandomState(4)
@@ -1781,7 +1817,6 @@ def phase_train_serve_small(card: str) -> dict:
     del runs, g, c
 
     # -- speculative decoding in the live loop, card against CPU ---------
-    from repro_torch.serving import SpeculativeConfig
     t_spec = time.perf_counter()
     spec_reqs = ts_requests(small, TS_SMALL_LOAD["n"],
                             TS_SMALL_SERVE["max_seq"], TS_SMALL_LOAD["rate"],
@@ -2426,6 +2461,565 @@ def phase_dense_reduce(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 10: the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+MOE_ARCH = "llama4-scout-17b-a16e"
+# 48 layers of llama4-scout are ~216 GB in bf16: the widths stay, the
+# depth is cut to 4 layers (~21.8 GB)
+MOE_LAYERS = 4
+MOE_SERVE = dict(max_batch=16, max_seq=256, page_size=16)
+MOE_REQUESTS = 32
+# bf16 near ties in [moe]. The flash and plain decode paths round at
+# different points (the plain one casts the softmax weights to bf16
+# before P V, as the reference does), so the two runs' logits and router
+# probabilities part a little: over steps where both agree, the top-1
+# logit by up to 0.064 and a router probability by up to 0.0073 (PERF.md,
+# PR 20). Each request is compared up to its first flip, which must be a
+# near tie in both runs: a token flip with both top-2 logit gaps below
+# LOGIT_TIE_BF16; a routing flip (the first layer whose top-k experts
+# differ; one flip changes the whole token) with both router top-k
+# probability gaps below ROUTER_TIE_BF16.
+LOGIT_TIE_BF16 = 0.1
+ROUTER_TIE_BF16 = 1e-2
+# float32, card against CPU: logits GAP_TIE, routers ROUTER_TIE_F32
+ROUTER_TIE_F32 = 1e-5
+SMALL_MOE_ARCHS = ("llama4-scout-17b-a16e", "arctic-480b")
+SMALL_SERVE = dict(max_batch=4, max_seq=64, page_size=8)
+SSM_ARCHS = ("mamba2-780m", "zamba2-7b")
+SSM_TOL = 1e-4                 # [ssm-small] logits, card against CPU
+# [ssm] / [hybrid] in float32 at full depth: the recurrent decode's logits
+# part from the growing forward's by up to 4e-4 (mamba2) and 1.7e-3
+# (zamba2) over 12 steps (PERF.md, PR 20); a differing token passes only
+# where both top-2 gaps are below this
+SSM_TIE_F32 = 1e-2
+
+
+def sized_requests(cfg, n: int, max_seq: int, seed: int = 1):
+    """``launch.serve``'s schedule sized to ``max_seq`` (every prompt +
+    generation fits)."""
+    g_hi, g_lo = max(2, max_seq // 2), max(1, max_seq // 4)
+    p_hi = max(1, min(max(8, max_seq // 8), max_seq - g_hi))
+    return generate_requests(
+        n, rate_rps=60.0, vocab_size=cfg.vocab_size,
+        prompt_rng=(min(4, p_hi), p_hi), gen_short=(1, min(12, g_lo)),
+        gen_long=(g_lo, g_hi), seed=seed)
+
+
+def engine(params, cfg, device: str, *, max_batch: int, max_seq: int,
+           page_size: int = 0, kernel: str = "flash", speculative=None):
+    with warnings.catch_warnings():
+        # the MoE capacity warning: the near-tie rule covers what it
+        # warns of, and the tight-capacity runs are there to bind
+        warnings.simplefilter("ignore")
+        return ServingEngine(params, cfg, serving=ServingConfig(
+            max_batch=max_batch, max_seq=max_seq, decode_kernel=kernel,
+            paging=PagingConfig(page_size=page_size) if page_size else None,
+            speculative=speculative), device=device)
+
+
+@contextlib.contextmanager
+def decode_probes(cur: dict):
+    """While ``cur["on"]``: each routed layer appends the (B, E) router
+    probabilities of its last position to ``cur["router"]``; while
+    ``cur["capture"]``, each flash-decode call appends copies of its
+    arguments to ``cur["calls"]``. The wrappers call through: the launch
+    counter sees exactly the kernel's launches."""
+    fd_pkg = importlib.import_module("repro_torch.kernels.flash_decode")
+    route, fd = moe_mod.route, fd_pkg.flash_decode
+
+    def probed_route(router_w, x, cfg):
+        out = route(router_w, x, cfg)
+        if cur.get("on"):
+            cur["router"].append(
+                torch.softmax(x[:, -1].float() @ router_w, dim=-1))
+        return out
+
+    def captured_fd(q, kpool, vpool, page_map, pos, live):
+        if cur.get("capture"):
+            cur["calls"].append(dict(
+                q=q.clone(), kpool=kpool.clone(), vpool=vpool.clone(),
+                page_map=page_map.clone(), pos=pos.clone(),
+                live=live.clone()))
+        return fd(q, kpool, vpool, page_map, pos, live)
+    moe_mod.route, fd_pkg.flash_decode = probed_route, captured_fd
+    try:
+        yield
+    finally:
+        moe_mod.route, fd_pkg.flash_decode = route, fd
+
+
+def record_decode(eng, cur: dict, capture: dict = None) -> dict:
+    """Wrap ``eng``'s decode dispatch: returns a dict (rid, index of the
+    token the step produces) -> (top-2 logits, (L, E) router
+    probabilities) of the batch that actually ran. ``capture`` takes the
+    flash-decode arguments of every layer of the step with the most live
+    KV tokens. Needs ``decode_probes(cur)`` around the run."""
+    rec = {}
+    decode = eng._programs.decode
+
+    def decode_rec(*a):
+        logits, cache = decode(*a)
+        cur["logits"] = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+        return logits, cache
+    eng._programs = dataclasses.replace(eng._programs, decode=decode_rec)
+    dispatch = eng._dispatch_decode
+
+    def dispatch_rec(params, group, rids, gidx):
+        rows = np.nonzero(group)[0]
+        live_tok = sum(int(eng._pos[s]) + 1 for s in rows)
+        cur.update(on=True, router=[], calls=[], capture=capture is not None
+                   and live_tok > capture.get("live_tokens", -1))
+        nxt = dispatch(params, group, rids, gidx)
+        if cur["capture"]:
+            capture.update(live_tokens=live_tok, calls=cur["calls"])
+        cur.update(on=False, capture=False)
+        lg = cur["logits"].cpu().numpy()
+        rt = torch.stack(cur["router"], 1).cpu().numpy() if cur["router"] \
+            else np.zeros((len(group), 0, 0), np.float32)
+        for s in rows:
+            rec[(int(rids[s]), int(gidx[s]))] = (lg[s], rt[s])
+        return nxt
+    eng._dispatch_decode = dispatch_rec
+    return rec
+
+
+def top_gap(v: np.ndarray, k: int = 1) -> np.ndarray:
+    """The k-th largest minus the (k+1)-th largest along the last axis."""
+    s = -np.sort(-v, axis=-1)
+    return s[..., k - 1] - s[..., k]
+
+
+def step_flip(have: list, a: int, b: int, k: int, logit_tie: float,
+              router_tie: float, where: str):
+    """Judge one decode step of one request. ``have``: the step's records
+    (top-2 logits, (L, E) router probabilities) from one run or two.
+    With two, a layer whose top-k experts differ is a routing flip: the
+    first such layer must be a near tie in both runs (router top-k gap
+    below ``router_tie``). A differing token (``a != b``) must be a near
+    tie in every recorded run (top-2 logit gap below ``logit_tie``); with
+    one record, whose routing the other run's is not known against, a
+    router gap below ``router_tie`` at any layer also counts. Returns
+    the near tie's description, None where nothing flipped; raises on a
+    flip that is no near tie."""
+    if len(have) == 2 and have[0][1].size:
+        (_, pa), (_, pb) = have
+        sa = np.sort(np.argsort(-pa, axis=-1, kind="stable")[:, :k], -1)
+        sb = np.sort(np.argsort(-pb, axis=-1, kind="stable")[:, :k], -1)
+        moved = np.nonzero((sa != sb).any(-1))[0]
+        if moved.size:
+            lay = int(moved[0])
+            gaps = [float(top_gap(p[lay], k)) for p in (pa, pb)]
+            if max(gaps) >= router_tie:
+                raise AssertionError(f"{where}: routing flip at layer {lay} "
+                                     f"with router gaps {gaps} (bound "
+                                     f"{router_tie})")
+            return f"routing flip at layer {lay}, router gaps {gaps}"
+    if a == b:
+        return None
+    gaps = [float(lg[0] - lg[1]) for lg, _ in have]
+    if gaps and max(gaps) < logit_tie:
+        return f"token flip, top-2 logit gaps {gaps}"
+    if len(have) == 1 and have[0][1].size \
+            and float(top_gap(have[0][1], k).min()) < router_tie:
+        return (f"token flip, router gap "
+                f"{float(top_gap(have[0][1], k).min()):.2e}")
+    raise AssertionError(f"{where}: token {a} vs {b}, top-2 logit gaps "
+                         f"{gaps} (bound {logit_tie}): no near tie")
+
+
+def recorded_compare(got: dict, want: dict, recs, tag: str, *,
+                     logit_tie: float, router_tie: float, k: int = 1
+                     ) -> dict:
+    """``got`` against ``want`` (rid -> tokens), each request up to its
+    first flip, which must be a near tie (``step_flip``) judged on the
+    records of the batches that actually ran (``recs``: one dict per
+    run, (rid, token index) -> (top-2 logits, router probabilities)).
+    A token with no record (the prefill's) must be equal. Returns tokens
+    compared, the near ties and, over the compared tokens, the largest
+    drift between the two runs of the top-1 logit and of a router
+    probability."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{tag} answered {sorted(got)}, expected "
+                             f"{sorted(want)}")
+    compared, ties, drift_l, drift_r = 0, [], 0.0, 0.0
+    for rid in sorted(want):
+        if len(got[rid]) != len(want[rid]):
+            raise AssertionError(f"{tag} request {rid}: {len(got[rid])} "
+                                 f"tokens, expected {len(want[rid])}")
+        for i, (a, b) in enumerate(zip(got[rid], want[rid])):
+            have = [r[(rid, i)] for r in recs if (rid, i) in r]
+            tie = step_flip(have, a, b, k, logit_tie, router_tie,
+                            f"{tag} request {rid} token {i}")
+            if tie:
+                ties.append((rid, i, tie))
+                break
+            compared += 1
+            if len(have) == 2:
+                (la, pa), (lb, pb) = have
+                drift_l = max(drift_l, abs(float(la[0] - lb[0])))
+                if pa.size:
+                    drift_r = max(drift_r, float(np.abs(pa - pb).max()))
+    if compared == 0:
+        raise AssertionError(f"{tag}: no token compared")
+    return {"tokens_compared": compared, "near_ties": ties,
+            "drift_top1_logit": drift_l, "drift_router_prob": drift_r}
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(card: str) -> dict:
+    """llama4-scout at full width (4 layers) through the paged engine,
+    flash against plain decode, bf16."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    reduced = {"n_layers": [get_config(MOE_ARCH).n_layers, MOE_LAYERS]}
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    reqs = sized_requests(cfg, MOE_REQUESTS, MOE_SERVE["max_seq"])
+    kw = dict(max_batch=MOE_SERVE["max_batch"],
+              max_seq=MOE_SERVE["max_seq"], page_size=MOE_SERVE["page_size"])
+    engine(params, cfg, "cuda", **kw).run_closed_loop(reqs[:2])   # warm-up
+    # the main path: counters reset just before, read just after
+    eng = engine(params, cfg, "cuda", **kw)
+    step_s = []
+    eng._step_decode = timed_call(eng._step_decode, step_s)
+    runtime.reset_counters()
+    st = eng.run_closed_loop(reqs)
+    torch.cuda.synchronize()
+    launches = fd_ops.COUNTER.count
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0 or launches != MOE_LAYERS * st.decode_dispatches:
+        raise AssertionError(f"[moe] flash_decode launched {launches} times "
+                             f"over {st.decode_dispatches} decode dispatches "
+                             f"x {MOE_LAYERS} layers")
+    by_rid = {r.rid: r for r in reqs}
+    if st.n_requests != len(reqs):
+        raise AssertionError(f"[moe] served {st.n_requests}/{len(reqs)}")
+    for c in st.completions:
+        if c.tokens.shape != (by_rid[c.rid].max_new,) \
+                or c.tokens.min() < 0 or c.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"[moe] request {c.rid}: bad stream")
+    # the same schedule again, recorded: flash (capturing the kernel's
+    # arguments at the step with the most live KV) and plain
+    cur, capture = {}, {}
+    with decode_probes(cur):
+        ef = engine(params, cfg, "cuda", **kw)
+        rec_f = record_decode(ef, cur, capture)
+        sf = ef.run_closed_loop(reqs)
+        ep = engine(params, cfg, "cuda", kernel="plain", **kw)
+        rec_p = record_decode(ep, cur)
+        sp = ep.run_closed_loop(reqs)
+    # the kernel on the captured live step, every layer, against its
+    # plain version (not counted: the counters were read above)
+    calls = capture["calls"]
+    if len(calls) != MOE_LAYERS:
+        raise AssertionError(f"[moe] captured {len(calls)} flash-decode "
+                             f"calls for one step, expected {MOE_LAYERS}")
+    errs = [check(f"[moe] live step layer {i} ({capture['live_tokens']} "
+                  f"live KV tokens)/bf16", a, torch.bfloat16)
+            for i, a in enumerate(calls)]
+    case = {k: torch.stack([a[k] for a in calls])
+            for k in ("q", "kpool", "vpool")}
+    case.update({k: calls[0][k] for k in ("page_map", "pos", "live")})
+    if streams(sf) != streams(st):
+        raise AssertionError("[moe] two flash runs of one schedule differ")
+    cmp = recorded_compare(streams(st), streams(sp), (rec_f, rec_p),
+                           "[moe] flash vs plain", logit_tie=LOGIT_TIE_BF16,
+                           router_tie=ROUTER_TIE_BF16,
+                           k=cfg.moe.experts_per_token)
+    timing = time_flash_decode(case, card)
+    del case, calls, capture
+    res = {
+        "arch": MOE_ARCH, "reduced": reduced, "n_params": n_params,
+        "dtype": cfg.param_dtype, "init_s": init_s,
+        "requests": st.n_requests, "gen_tokens": st.gen_tokens,
+        "tokens_per_s": st.tokens_per_s, "plain_tokens_per_s":
+        sp.tokens_per_s, "decode_steps": st.decode_dispatches,
+        "decode_step_ms": 1e3 * float(np.mean(step_s)),
+        "decode_step_ms_median": 1e3 * float(np.median(step_s)),
+        "launches": launches, "peak_mem_bytes": peak,
+        "prefill_chunks": st.prefill_chunks,
+        "max_abs_err": max(e[0] for e in errs),
+        "max_row_rel_err": max(e[1] for e in errs), "timing": timing,
+        "logit_tie": LOGIT_TIE_BF16, "router_tie": ROUTER_TIE_BF16, **cmp}
+    print(f"[moe] {MOE_ARCH} full width (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.experts_per_token} + shared, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}), reduced: n_layers "
+          f"{reduced['n_layers'][0]} -> {MOE_LAYERS}; {n_params / 1e9:.2f} G "
+          f"params, init {init_s:.1f} s; paged ps={kw['page_size']} "
+          f"{kw['max_batch']} x {kw['max_seq']}, {st.n_requests} requests, "
+          f"{st.gen_tokens} tokens: flash {st.tokens_per_s:.1f} tok/s, "
+          f"decode step {res['decode_step_ms']:.2f} ms mean "
+          f"({res['decode_step_ms_median']:.2f} median) over {len(step_s)}; "
+          f"plain {sp.tokens_per_s:.1f} tok/s; flash_decode launches "
+          f"{launches} = {MOE_LAYERS} x {st.decode_dispatches} decode "
+          f"dispatches; peak mem {peak / 2**30:.2f} GiB | {card}")
+    print(f"[moe] streams flash = plain on {cmp['tokens_compared']} tokens, "
+          f"{len(cmp['near_ties'])} requests stopped at a near-tie flip "
+          f"(token: both top-2 logit gaps < {LOGIT_TIE_BF16:g}; routing: "
+          f"both router gaps < {ROUTER_TIE_BF16:g}); drift "
+          f"over compared tokens: top-1 logit {cmp['drift_top1_logit']:.2e},"
+          f" router prob {cmp['drift_router_prob']:.2e}")
+    del params, eng, ef, ep
+    free_card()
+    return res
+
+
+def same_params(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(a.parameters(), b.parameters()))
+
+
+def phase_moe_small(card: str) -> dict:
+    """The reduced llama4 (top-1 + shared) and arctic (top-2 + dense
+    residual), f32, card against CPU."""
+    out = {}
+    for name in SMALL_MOE_ARCHS:
+        cfg = get_config(name).reduced()
+        ties = dict(logit_tie=GAP_TIE, router_tie=ROUTER_TIE_F32,
+                    k=cfg.moe.experts_per_token)
+        reqs = sized_requests(cfg, 16, SMALL_SERVE["max_seq"])
+        pc = tf.init_params(cfg, seed=0, device="cpu")
+        pg = tf.init_params(cfg, seed=0, device="cuda")
+        if not same_params(pc, pg):
+            raise AssertionError(f"[moe-small] {name}: init_params differs "
+                                 f"between the card and the CPU")
+        res, cur = {}, {}
+        with decode_probes(cur):
+            runs = {}
+            for dev, p in (("cpu", pc), ("cuda", pg)):
+                for paged in (False, True):
+                    e = engine(p, cfg, dev, **dict(
+                        SMALL_SERVE, page_size=SMALL_SERVE["page_size"]
+                        if paged else 0))
+                    rec = record_decode(e, cur)
+                    runs[dev, paged] = (streams(e.run_closed_loop(reqs)),
+                                        rec)
+            for paged in (False, True):
+                (g, rg), (c, rc) = runs["cuda", paged], runs["cpu", paged]
+                res["paged" if paged else "dense"] = recorded_compare(
+                    g, c, (rg, rc), f"[moe-small] {name} card vs CPU",
+                    **ties)
+            base, rbase = runs["cuda", True]
+            # the sort dispatch
+            scfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, impl="sort"))
+            e = engine(pg, scfg, "cuda", **SMALL_SERVE)
+            rs = record_decode(e, cur)
+            res["sort"] = recorded_compare(
+                streams(e.run_closed_loop(reqs)), base, (rs, rbase),
+                f"[moe-small] {name} sort vs einsum", **ties)
+            # speculation: a dense 1-layer draft and a MoE 1-layer draft
+            for kind in ("dense", "moe"):
+                dcfg = dataclasses.replace(cfg, name=f"{name}-draft",
+                                           n_layers=1)
+                if kind == "dense":
+                    dcfg = dataclasses.replace(dcfg, arch_type="dense",
+                                               moe=None)
+                spec = SpeculativeConfig(
+                    draft_params=tf.init_params(dcfg, seed=2, device="cuda"),
+                    draft_cfg=dcfg, k=SPEC_K, window=SPEC_WINDOW)
+                e = engine(pg, cfg, "cuda", speculative=spec, **SMALL_SERVE)
+                sst = e.run_closed_loop(reqs)
+                if sst.drafted == 0:
+                    raise AssertionError(f"[moe-small] {name}: no draft")
+                res[f"spec_{kind}_draft"] = dict(recorded_compare(
+                    streams(sst), base, (rbase,),
+                    f"[moe-small] {name} {kind} draft vs greedy", **ties),
+                    drafted=sst.drafted, accepted=sst.accepted)
+            # a tight capacity: prefill chunks drop tokens
+            tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=1.0))
+            dropped = []
+            dispatch = moe_mod.dispatch_combine
+
+            def counting(x, gates, idx, c, cap, dtype=None):
+                disp, comb = dispatch(x, gates, idx, c, cap, dtype)
+                dropped.append(idx.numel() - int(disp.sum()))
+                return disp, comb
+            moe_mod.dispatch_combine = counting
+            try:
+                tight = {}
+                for dev, p in (("cpu", pc), ("cuda", pg)):
+                    dropped.clear()
+                    e = engine(p, tcfg, dev, **SMALL_SERVE)
+                    rec = record_decode(e, cur)
+                    tight[dev] = (streams(e.run_closed_loop(reqs)), rec,
+                                  sum(dropped))
+            finally:
+                moe_mod.dispatch_combine = dispatch
+            if not tight["cuda"][2] or tight["cuda"][2] != tight["cpu"][2]:
+                raise AssertionError(f"[moe-small] {name} capacity 1.0: "
+                                     f"dropped {tight['cuda'][2]} on the "
+                                     f"card, {tight['cpu'][2]} on the CPU")
+            res["tight"] = dict(recorded_compare(
+                tight["cuda"][0], tight["cpu"][0],
+                (tight["cuda"][1], tight["cpu"][1]),
+                f"[moe-small] {name} capacity 1.0 card vs CPU", **ties),
+                dropped=tight["cuda"][2])
+        out[name] = res
+        print(f"[moe-small] {name}.reduced() f32, card = CPU: engine "
+              f"streams dense {res['dense']['tokens_compared']} / paged "
+              f"{res['paged']['tokens_compared']} tokens; sort = einsum on "
+              f"{res['sort']['tokens_compared']}; dense draft "
+              f"({res['spec_dense_draft']['accepted']}/"
+              f"{res['spec_dense_draft']['drafted']} accepted) and MoE "
+              f"draft ({res['spec_moe_draft']['accepted']}/"
+              f"{res['spec_moe_draft']['drafted']}) = greedy; capacity 1.0: "
+              f"{res['tight']['dropped']} choices dropped on both, streams "
+              f"equal on {res['tight']['tokens_compared']}; near ties "
+              f"{sum(len(v['near_ties']) for v in res.values())} | {card}")
+    return out
+
+
+def oneshot_logits(fn, rec: list):
+    """``tf.prefill`` / ``tf.decode_step`` recording each call's last
+    logits column (B, V) on the CPU and its seconds (synced)."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*a, **kw)
+        torch.cuda.synchronize()
+        rec.append((time.perf_counter() - t0, logits[:, -1].float().cpu()))
+        return logits, cache
+    return call
+
+
+def run_oneshot(params, cfg):
+    """``launch.serve``'s single-shot path (``_serve_oneshot``: 4 x 24
+    prompts from ``--seed 0``, 12 generated) with the prefill and every
+    lockstep decode step recorded. Returns (tokens (4, 12) CPU,
+    [(seconds, logits (4, V))] per step)."""
+    rec = []
+    prefill, decode_step = serve_mod.tf.prefill, serve_mod.tf.decode_step
+    serve_mod.tf.prefill = oneshot_logits(prefill, rec)
+    serve_mod.tf.decode_step = oneshot_logits(decode_step, rec)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            out = serve_mod._serve_oneshot(params, cfg,
+                                           argparse.Namespace(seed=0))
+    finally:
+        serve_mod.tf.prefill, serve_mod.tf.decode_step = prefill, decode_step
+    return out, rec, log.getvalue()
+
+
+def growing_forward(params, cfg, prompts: np.ndarray,
+                    out: torch.Tensor) -> torch.Tensor:
+    """The cacheless greedy reference of ``serve_batch``'s tokens: for
+    each generated position t, a ``forward`` over the prompt and the
+    first t tokens, its last column's logits: (B, G, V) float32, CPU."""
+    seq = torch.cat([torch.tensor(prompts), out], dim=1).to("cuda")
+    P, G = prompts.shape[1], out.shape[1]
+    with torch.inference_mode():
+        return torch.stack([tf.forward(params, cfg, seq[:, :P + t],
+                                       remat=False)[0][:, -1].float().cpu()
+                            for t in range(G)], dim=1)
+
+
+def phase_ssm(card: str, name: str) -> dict:
+    """mamba2-780m / zamba2-7b at full width and depth through the
+    launcher's single-shot path: in the config's bf16 (timed), then in
+    float32, where the tokens are held against a cacheless forward over
+    the growing sequence (the recurrent decode and its conv ring against
+    the chunked scan). In bf16 the two paths' rounding parts their
+    logits by O(std) within a few steps at this depth (PERF.md, PR 20),
+    so there the drift is printed, not gated."""
+    base = get_config(name)
+    res = {"arch": name}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, param_dtype=dtype, activ_dtype=dtype)
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if dtype == "bfloat16":
+            run_oneshot(params, cfg)                        # warm-up
+        out, rec, log = run_oneshot(params, cfg)
+        peak = torch.cuda.max_memory_allocated()
+        B, G = out.shape
+        prompts = serve_mod.oneshot_prompts(cfg, 0)
+        if (B, G) != (serve_mod.ONESHOT_BATCH, serve_mod.ONESHOT_GEN) \
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size \
+                or not all(bool(torch.isfinite(r[1]).all()) for r in rec):
+            raise AssertionError(f"[{base.arch_type}] {name} {dtype}: "
+                                 f"tokens {tuple(out.shape)} or logits bad")
+        fl = growing_forward(params, cfg, prompts, out)
+        sl = torch.stack([r[1] for r in rec], dim=1)            # (B, G, V)
+        drift = (fl - sl).abs().amax(dim=(0, 2)).tolist()       # per step
+        r = {"n_params": sum(q.numel() for q in params.parameters()),
+             "init_s": init_s, "prefill_ms": 1e3 * rec[0][0],
+             "decode_ms_median": 1e3 * float(np.median([x[0]
+                                                        for x in rec[1:]])),
+             "decode_steps": len(rec) - 1, "peak_mem_bytes": peak,
+             "drift_per_step": drift,
+             "launcher": log.strip().splitlines()}
+        if dtype == "float32":
+            top_f = torch.topk(fl, 2, dim=-1).values.numpy()
+            top_s = torch.topk(sl, 2, dim=-1).values.numpy()
+            recs = [{(b, t): (top[b, t], np.zeros((0, 0))) for b in range(B)
+                     for t in range(G)} for top in (top_s, top_f)]
+            r.update(recorded_compare(
+                {b: out[b].tolist() for b in range(B)},
+                {b: fl[b].argmax(-1).tolist() for b in range(B)}, recs,
+                f"[{base.arch_type}] {name} f32 serve_batch vs forward",
+                logit_tie=SSM_TIE_F32, router_tie=0.0))
+        res[dtype] = r
+        del params, fl, sl
+    bf, f32r = res["bfloat16"], res["float32"]
+    print(f"[{base.arch_type}] {name} full width, full depth ({base.n_layers} "
+          f"layers, d {base.d_model}, {bf['n_params'] / 1e9:.2f} G params) "
+          f"through the launcher's single-shot path ({B} x "
+          f"{serve_mod.ONESHOT_PROMPT}, {G} generated): bf16 init "
+          f"{bf['init_s']:.1f} s, prefill {bf['prefill_ms']:.1f} ms, lockstep "
+          f"step {bf['decode_ms_median']:.2f} ms median over "
+          f"{bf['decode_steps']}, peak mem {bf['peak_mem_bytes'] / 2**30:.2f} "
+          f"GiB, logits vs the growing forward {bf['drift_per_step'][0]:.1e} "
+          f"at the prefill, up to {max(bf['drift_per_step']):.2f} decoding; "
+          f"f32: tokens = the growing forward on {f32r['tokens_compared']} of "
+          f"{B * G}, {len(f32r['near_ties'])} near ties (gaps < "
+          f"{SSM_TIE_F32:g}), logits within {max(f32r['drift_per_step']):.1e}"
+          f", step {f32r['decode_ms_median']:.2f} ms, peak mem "
+          f"{f32r['peak_mem_bytes'] / 2**30:.2f} GiB | {card}")
+    free_card()
+    return res
+
+
+def phase_ssm_small(card: str) -> dict:
+    """The reduced mamba2 and zamba2, f32: the single-shot path card
+    against CPU."""
+    out = {}
+    for name in SSM_ARCHS:
+        cfg = get_config(name).reduced()
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            runs[dev] = (tf.init_params(cfg, seed=0, device=dev),)
+            runs[dev] += run_oneshot(runs[dev][0], cfg)[:2]
+        if not same_params(runs["cpu"][0], runs["cuda"][0]):
+            raise AssertionError(f"[ssm-small] {name}: init_params differs "
+                                 f"between the card and the CPU")
+        (_, tg, lg), (_, tc, lc) = runs["cuda"], runs["cpu"]
+        err = max(float((a[1] - b[1]).abs().max()) for a, b in zip(lg, lc))
+        if not torch.equal(tg, tc) or not err <= SSM_TOL:
+            raise AssertionError(f"[ssm-small] {name}: tokens equal "
+                                 f"{torch.equal(tg, tc)}, logits max |card "
+                                 f"- CPU| {err} (bound {SSM_TOL})")
+        out[name] = {"max_abs_err": err, "tokens": tg.numel()}
+        print(f"[ssm-small] {name}.reduced() f32, the single-shot path: "
+              f"tokens card = CPU ({tg.numel()}), logits max |card - CPU| "
+              f"{err:.2e} over {len(lg)} steps (bound {SSM_TOL:g}) | {card}")
+    return out
+
+# ---------------------------------------------------------------------------
 # slice 3: the public kernel API at full width
 # ---------------------------------------------------------------------------
 # flash_attention: mlitb-lm-100m's prefill over the served engine's 16
@@ -2955,6 +3549,15 @@ def main() -> int:
         t9 = time.perf_counter()
         slice9[name] = fn(card)
         slice9[name]["seconds"] = time.perf_counter() - t9
+    slice10 = {}
+    for name, fn in (("moe", phase_moe), ("moe-small", phase_moe_small),
+                     ("ssm", lambda c: phase_ssm(c, "mamba2-780m")),
+                     ("hybrid", lambda c: phase_ssm(c, "zamba2-7b")),
+                     ("ssm-small", phase_ssm_small)):
+        t10 = time.perf_counter()
+        slice10[name] = fn(card)
+        slice10[name]["seconds"] = time.perf_counter() - t10
+    moe_t = slice10["moe"]["timing"]
     main_api = phase_api(card)
     fa = phase_flash_attention(card, main_api)
     ssd = phase_ssd(card, main_api)
@@ -2974,6 +3577,12 @@ def main() -> int:
          "launches_single_version": ts["launches_single_version"],
          "launches_mixed_version": ts["launches_mixed_version"],
          "launches_serve": srv["launches"],
+         "launches_moe": slice10["moe"]["launches"],
+         "moe_bf16": {k: moe_t[k] for k in ("ms", "ms_eager", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "live_tokens")},
+         "max_abs_err_moe_bf16": slice10["moe"]["max_abs_err"],
+         "max_row_rel_err_moe_bf16": slice10["moe"]["max_row_rel_err"],
          "max_abs_err": kern["max_abs_err"],
          "max_abs_err_bf16": kern["max_abs_err_bf16"],
          "max_row_rel_err_bf16": kern["max_row_rel_err_bf16"],
@@ -3039,6 +3648,7 @@ def main() -> int:
          "oneshot": oneshot, "train": train,
          "reduce_lm": lm, "train_lm": train_lm, "train_serve": ts,
          "train_serve_small": ts_small, "slice9": slice9,
+         "slice10": slice10,
          "api_launches": launches,
          "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
@@ -3051,6 +3661,9 @@ def main() -> int:
           f"{slice8[1]:.1f}, speculative train-serve-small {slice8[2]:.1f}); "
           f"slice 9's {sum(v['seconds'] for v in slice9.values()):.1f} s ("
           + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice9.items())
+          + f"); slice 10's "
+          f"{sum(v['seconds'] for v in slice10.values()):.1f} s ("
+          + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice10.items())
           + ")")
     print(json.dumps({"kernels": rows}))
     print(card)

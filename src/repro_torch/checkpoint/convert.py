@@ -16,8 +16,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.mlitb_cnn import CNN_EXTRAS
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
-from repro_torch.models.layers import ParamTree, dtype_of
-from repro_torch.models.transformer import param_shapes
+from repro_torch.models.layers import ParamTree
+from repro_torch.models.transformer import abstract_params
 
 
 def _to_tensor(a: Any, dtype: torch.dtype) -> torch.Tensor:
@@ -30,28 +30,32 @@ def _to_tensor(a: Any, dtype: torch.dtype) -> torch.Tensor:
 def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
                     device: DeviceLike = "cuda") -> ParamTree:
     """The port's parameters from the tree that
-    ``repro.models.transformer.init_params`` returns, as numpy arrays.
-    Keys and shapes must match ``param_shapes(cfg)``; raises otherwise."""
+    ``repro.models.transformer.init_params`` returns, as numpy arrays:
+    every family's nesting (stacked experts, a hybrid's ``super`` /
+    ``tail``), each leaf in the dtype the port's ``init_params`` gives it
+    (the float32 router and SSM leaves stay float32 in a bf16 model).
+    Keys and shapes must match ``abstract_params(cfg)``; raises
+    otherwise."""
     dev = resolve_device(device)
-    dtype = dtype_of(cfg.param_dtype)
 
-    def walk(t, shapes, path):
-        if set(t) != set(shapes):
+    def walk(t, spec, path):
+        if set(t) != set(spec):
             raise ValueError(f"params_from_jax: keys at {path or '/'} are "
-                             f"{sorted(t)}, expected {sorted(shapes)}")
+                             f"{sorted(t)}, expected {sorted(spec)}")
         out = {}
-        for k in sorted(shapes):
-            if isinstance(shapes[k], dict):
-                out[k] = walk(t[k], shapes[k], f"{path}/{k}")
+        for k in sorted(spec):
+            if isinstance(spec[k], dict):
+                out[k] = walk(t[k], spec[k], f"{path}/{k}")
                 continue
-            x = _to_tensor(t[k], dtype)
-            if tuple(x.shape) != shapes[k]:
+            x = _to_tensor(t[k], spec[k].dtype)
+            if x.shape != spec[k].shape:
                 raise ValueError(f"params_from_jax: {path}/{k} has shape "
-                                 f"{tuple(x.shape)}, expected {shapes[k]}")
+                                 f"{tuple(x.shape)}, expected "
+                                 f"{tuple(spec[k].shape)}")
             out[k] = x
         return out
 
-    return ParamTree(walk(tree, param_shapes(cfg), "")).to(dev)
+    return ParamTree(walk(tree, abstract_params(cfg), "")).to(dev)
 
 
 def params_to_numpy(params: ParamTree) -> dict:

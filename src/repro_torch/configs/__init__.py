@@ -4,6 +4,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MoEConfig,
     SSMConfig,
     get_config,
+    list_archs,
     register,
 )
-from repro_torch.configs import mlitb_cnn, mlitb_lm_100m  # noqa: F401,E402
+from repro_torch.configs import all_configs  # noqa: F401,E402

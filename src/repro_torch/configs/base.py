@@ -12,7 +12,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+# block kinds of the layer-stack pattern
+ATTN = "attn"          # attention + dense MLP block
+MOE = "moe"            # attention + MoE block
+SSM = "ssm"            # Mamba2 block (attention-free)
+HYBRID_ATTN = "hattn"  # attention block inside an SSM stack (Zamba2)
 
 
 @dataclass(frozen=True)
@@ -89,23 +95,84 @@ class ArchConfig:
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """True if a 500k-token decode is representable (sub-quadratic
+        state): SSM/hybrid natively, attention archs through the
+        sliding-window variant; the enc-dec audio backbone has no
+        long-decode analogue."""
+        return not self.enc_dec
+
+    def block_pattern(self) -> Tuple[str, ...]:
+        """Per-layer block kinds, length == n_layers (decoder stack)."""
+        if self.arch_type == "moe":
+            return (MOE,) * self.n_layers
+        if self.arch_type == "ssm":
+            return (SSM,) * self.n_layers
+        if self.arch_type == "hybrid":
+            p = self.hybrid_attn_period
+            return tuple(HYBRID_ATTN if i % p == p - 1 else SSM
+                         for i in range(self.n_layers))
+        return (ATTN,) * self.n_layers
+
     def n_params(self) -> int:
-        """Analytic parameter count of the dense family (embeddings +
-        attention/MLP blocks + head) — the only family this port serves."""
-        if self.arch_type != "dense":
-            raise NotImplementedError(
-                f"n_params for arch_type={self.arch_type!r} is not ported "
-                f"(ROADMAP C7: MoE/VLM/audio/SSM families)")
+        """Analytic parameter count (embeddings + blocks + head)."""
         d, hd = self.d_model, self.head_dim
         total = self.vocab_size * d + d                   # embed + final norm
         if not self.tie_embeddings:
             total += self.vocab_size * d                  # lm head
-        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
-            + self.n_heads * hd * d + 2 * d
-        if self.qk_norm:
-            attn += 2 * hd
-        mlp = (3 if self.mlp_act == "silu" else 2) * d * self.d_ff
-        return total + self.n_layers * (attn + mlp)
+
+        def attn_params() -> int:
+            n = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+            n += self.n_heads * hd * d + 2 * d            # out proj, pre norms
+            if self.qk_norm:
+                n += 2 * hd
+            return n
+
+        def mlp_params(ff: int) -> int:
+            return (3 if self.mlp_act == "silu" else 2) * d * ff
+
+        def ssm_params() -> int:
+            s = self.ssm
+            di, nh, g = s.d_inner(d), s.n_heads(d), s.n_groups
+            n = d * (2 * di + 2 * g * s.d_state + nh)     # in_proj
+            n += s.d_conv * (di + 2 * g * s.d_state)      # conv
+            n += 3 * nh                                   # A_log, D, dt_bias
+            n += di * d + d + di                          # out_proj, norms
+            return n
+
+        for kind in self.block_pattern():
+            if kind in (ATTN, HYBRID_ATTN):
+                total += attn_params() + mlp_params(self.d_ff)
+            elif kind == MOE:
+                m = self.moe
+                total += attn_params() + d * m.n_experts  # + router
+                total += m.n_experts * 3 * d * m.d_ff_expert
+                if m.shared_expert:
+                    total += 3 * d * m.d_ff_expert
+                if m.dense_residual:
+                    total += mlp_params(self.d_ff)
+            else:
+                total += ssm_params()
+        if self.enc_dec:
+            # encoder blocks, a cross-attention per decoder block, and
+            # the encoder's position table
+            total += self.n_encoder_layers * (attn_params()
+                                              + mlp_params(self.d_ff))
+            total += self.n_layers * attn_params() + self.encoder_seq * d
+        return total
+
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE top-k instead of all experts)."""
+        if self.moe is None:
+            return self.n_params()
+        per = 3 * self.d_model * self.moe.d_ff_expert
+        idle = (self.moe.n_experts - self.moe.experts_per_token) * per
+        return self.n_params() - self.n_layers * idle
 
     # ------------------------------------------------------------------
     def reduced(self) -> "ArchConfig":
@@ -143,6 +210,9 @@ class ArchConfig:
             changes["sliding_window"] = 16
         return dataclasses.replace(self, **changes)
 
+    def with_sliding_window(self, window: int) -> "ArchConfig":
+        return dataclasses.replace(self, sliding_window=window)
+
 
 # ---------------------------------------------------------------------------
 ARCH_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
@@ -158,7 +228,12 @@ def register(name: str):
 def get_config(name: str) -> ArchConfig:
     if name not in ARCH_REGISTRY:
         # import side-effect registration
-        from repro_torch.configs import mlitb_cnn, mlitb_lm_100m  # noqa: F401
+        from repro_torch.configs import all_configs  # noqa: F401
     if name not in ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_REGISTRY)}")
     return ARCH_REGISTRY[name]()
+
+
+def list_archs() -> Sequence[str]:
+    from repro_torch.configs import all_configs  # noqa: F401
+    return sorted(ARCH_REGISTRY)

@@ -7,8 +7,16 @@ throughput, latency and the engine's counters. Weights are random, drawn
 from ``--seed``.
 
   python -m repro_torch.launch.serve --arch mlitb-lm-100m --page-size 16
+  python -m repro_torch.launch.serve --arch mamba2-780m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mlitb-lm-100m \\
       --reduced --requests 8 --max-batch 4 --max-seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-scout-17b-a16e --reduced --device cpu
+
+The default ``--arch`` is ``qwen3-4b``, as the reference's. Dense and MoE
+archs stream through the engine; SSM and hybrid archs (``mamba2-780m``,
+``zamba2-7b``) have no slot-cache engine and serve one reference batch
+through ``serve_batch`` (4 x 24 random prompts, 12 tokens each).
 
 ``--page-size`` switches the KV cache to the paged pool with prefix
 reuse; ``--shared-prefix N`` generates the matching system-prompt-heavy
@@ -34,6 +42,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -59,9 +68,6 @@ def serve_batch(params, cfg: ArchConfig, prompts, gen: int, *,
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params lie on {params['embed'].device}, "
                          f"serve_batch was asked for {dev}")
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"serve_batch for arch_type={cfg.arch_type!r} is ROADMAP C7")
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     P = prompts.shape[1]
     with torch.inference_mode():
@@ -75,6 +81,36 @@ def serve_batch(params, cfg: ArchConfig, prompts, gen: int, *,
     return torch.cat(out, dim=1)
 
 
+ONESHOT_BATCH, ONESHOT_PROMPT, ONESHOT_GEN = 4, 24, 12
+
+
+def oneshot_prompts(cfg: ArchConfig, seed: int) -> np.ndarray:
+    """``_serve_oneshot``'s prompts: (4, 24) int32 from
+    ``np.random.RandomState(seed + 1)`` (the reference draws them with
+    ``jax.random``, whose numbers no other library reproduces)."""
+    return np.random.RandomState(seed + 1).randint(
+        0, cfg.vocab_size, (ONESHOT_BATCH, ONESHOT_PROMPT)).astype(np.int32)
+
+
+def _serve_oneshot(params, cfg: ArchConfig, args) -> torch.Tensor:
+    """The families without an engine (SSM, hybrid): one reference batch
+    of 4 x 24 random prompts through ``serve_batch``, 12 tokens each;
+    prints the run and returns the tokens (4, 12) on the CPU."""
+    import time
+
+    prompts = oneshot_prompts(cfg, args.seed)
+    t0 = time.time()
+    out = serve_batch(params, cfg, prompts, ONESHOT_GEN)
+    out = out.cpu()
+    dt = time.time() - t0
+    print(f"arch={cfg.name} [{cfg.arch_type}] one-shot reference path "
+          f"(no continuous-batching engine for this family yet)")
+    print(f"generated {tuple(out.shape)} in {dt:.2f}s "
+          f"({out.numel() / dt:.1f} tok/s incl. warm-up)")
+    print("sample:", out[0][:12].numpy())
+    return out
+
+
 def main(argv=None):
     import dataclasses
 
@@ -86,7 +122,7 @@ def main(argv=None):
                                      SpeculativeConfig, generate_requests)
 
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="mlitb-lm-100m")
+    ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--closure", default=None, metavar="PATH",
                     help="serve the params of this research closure")
@@ -145,9 +181,6 @@ def main(argv=None):
         from repro_torch.core.closure import ResearchClosure
         clo = ResearchClosure.load(args.closure)
         cfg = clo.config
-        if cfg.arch_type != "dense":
-            raise NotImplementedError(
-                f"serving a {cfg.arch_type!r} closure is ROADMAP C7")
         params = params_from_jax(clo.params, cfg, device=device)
         print(f"loaded closure {args.closure} (arch={clo.arch}, "
               f"step={clo.step})")
@@ -156,6 +189,12 @@ def main(argv=None):
         if args.reduced:
             cfg = cfg.reduced()
         params = init_params(cfg, seed=args.seed, device=device)
+
+    if cfg.arch_type not in ("dense", "moe"):
+        # ssm / hybrid: no slot-cache engine; serve one reference batch
+        # through serve_batch (vlm / audio raise there: not ported)
+        _serve_oneshot(params, cfg, args)
+        return 0
 
     max_seq = args.max_seq
     if cfg.sliding_window:

@@ -29,7 +29,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
-from repro_torch.models.layers import (apply_rope, as_dtype, f32,
+from repro_torch.models.layers import (Init, apply_rope, as_dtype, f32,
                                        rmsnorm, rope_tables, rotate)
 
 Params = Dict[str, Any]
@@ -37,31 +37,30 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-def init_attention(gen: torch.Generator, d: int, n_heads: int,
+def init_attention(init: Init, path: str, d: int, n_heads: int,
                    n_kv_heads: int, head_dim: int, *, qk_norm: bool = False,
                    bias: bool = False, dtype=torch.float32,
                    lead: Tuple[int, ...] = ()) -> Params:
     """Random attention weights (``lead`` prepends stacking axes)."""
     s = d ** -0.5
-
-    def normal(*shape):
-        return torch.randn(lead + shape, generator=gen)
-
     p: Params = {
-        "wq": (normal(d, n_heads, head_dim) * s).to(dtype),
-        "wk": (normal(d, n_kv_heads, head_dim) * s).to(dtype),
-        "wv": (normal(d, n_kv_heads, head_dim) * s).to(dtype),
-        "wo": (normal(n_heads, head_dim, d)
-               * (n_heads * head_dim) ** -0.5).to(dtype),
+        "wq": init.normal(f"{path}/wq", lead + (d, n_heads, head_dim), s,
+                          dtype),
+        "wk": init.normal(f"{path}/wk", lead + (d, n_kv_heads, head_dim), s,
+                          dtype),
+        "wv": init.normal(f"{path}/wv", lead + (d, n_kv_heads, head_dim), s,
+                          dtype),
+        "wo": init.normal(f"{path}/wo", lead + (n_heads, head_dim, d),
+                          (n_heads * head_dim) ** -0.5, dtype),
     }
     if bias:
-        p["bq"] = torch.zeros(lead + (n_heads, head_dim), dtype=dtype)
-        p["bk"] = torch.zeros(lead + (n_kv_heads, head_dim), dtype=dtype)
-        p["bv"] = torch.zeros(lead + (n_kv_heads, head_dim), dtype=dtype)
-        p["bo"] = torch.zeros(lead + (d,), dtype=dtype)
+        p["bq"] = init.full(lead + (n_heads, head_dim), 0.0, dtype)
+        p["bk"] = init.full(lead + (n_kv_heads, head_dim), 0.0, dtype)
+        p["bv"] = init.full(lead + (n_kv_heads, head_dim), 0.0, dtype)
+        p["bo"] = init.full(lead + (d,), 0.0, dtype)
     if qk_norm:
-        p["q_norm"] = {"scale": torch.ones(lead + (head_dim,), dtype=dtype)}
-        p["k_norm"] = {"scale": torch.ones(lead + (head_dim,), dtype=dtype)}
+        p["q_norm"] = {"scale": init.full(lead + (head_dim,), 1.0, dtype)}
+        p["k_norm"] = {"scale": init.full(lead + (head_dim,), 1.0, dtype)}
     return p
 
 

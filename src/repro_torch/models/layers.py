@@ -11,11 +11,15 @@ plain functions on tensors. Layer-stacked parameters carry a leading
 from __future__ import annotations
 
 import functools
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.counter_hash import chain_key
 
 Params = Mapping[str, Any]
 
@@ -52,6 +56,53 @@ class ParamTree(nn.Module):
 
     def items(self):
         return [(k, self[k]) for k in self.keys()]
+
+
+class Init:
+    """Where ``init_params`` gets its leaves. ``normal(path, shape,
+    scale, dtype)`` fills a leaf on ``device`` with ``N(0, 1) * scale``:
+    the leaf, flattened, is cut into chunks of ``CHUNK`` entries, and
+    chunk ``i`` is drawn on the CPU in float32 from its own
+    ``torch.Generator`` seeded with ``chain_key(seed, crc32(path), i)``,
+    scaled, cast and copied into place. So the numbers depend on the
+    seed, the leaf's path and its size only (not on the device, the
+    order of the draws or the thread that drew them), the host holds a
+    few chunks at a time however wide the model, and the chunks are
+    drawn on every core. On the ``meta`` device nothing is drawn (the
+    tree's shapes and dtypes only)."""
+
+    CHUNK = 1 << 22
+
+    def __init__(self, seed: int, device: torch.device):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        self._pool = None if self.device.type == "meta" else \
+            ThreadPoolExecutor(max(1, torch.get_num_threads()))
+
+    def normal(self, path: str, shape: Tuple[int, ...], scale: float,
+               dtype: torch.dtype) -> torch.Tensor:
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        if self._pool is None:
+            return out
+        flat, key = out.view(-1), zlib.crc32(path.encode())
+
+        def chunk(i: int) -> None:
+            a = i * self.CHUNK
+            n = min(self.CHUNK, flat.numel() - a)
+            gen = torch.Generator().manual_seed(chain_key(self.seed, key, i))
+            flat[a:a + n].copy_((torch.randn(n, generator=gen) * scale)
+                                .to(dtype))
+        n_chunks = -(-flat.numel() // self.CHUNK)
+        list(self._pool.map(chunk, range(n_chunks)))
+        return out
+
+    def full(self, shape: Tuple[int, ...], value: float,
+             dtype: torch.dtype) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
 
 
 def layer(tree: Union[ParamTree, Params], i: int) -> Dict[str, Any]:

@@ -1,20 +1,32 @@
-"""Dense decoder LM: parameters, the training forward and the serving
+"""Decoder LMs of the dense, MoE, SSM and hybrid families: parameters,
+the training forward, the single-shot prefill/decode and the serving
 engine's step functions.
 
-The PyTorch counterpart of ``repro.models.transformer`` for the dense
-family. The parameter tree has the JAX package's names and layouts —
-``{embed, blocks, final_norm[, lm_head]}`` with the blocks stacked on a
-leading ``L`` axis — held in a ``ParamTree`` module; the JAX ``scan``
-over layers is a Python loop. KV caches are ``{"layers": {"k", "v"}}``
-with a leading ``L`` axis, updated in place and returned.
+The PyTorch counterpart of ``repro.models.transformer``. The parameter
+tree has the JAX package's names and layouts, held in a ``ParamTree``
+module; uniform stacks carry a leading ``L`` axis, and the JAX ``scan``
+over layers is a Python loop:
 
-  decode cache      (L, B, T, K, hd) + kpos (L, T)   single-shot path
+  dense / moe  {embed, blocks, final_norm[, lm_head]}
+  ssm          {embed, blocks, final_norm[, lm_head]}
+  hybrid       {embed, super: {ssm (Ns, P-1, ..), attn (Ns, ..)},
+                tail (Nt, ..), final_norm[, lm_head]}
+
+Caches are updated in place and returned:
+
+  decode cache      attention: {k, v (L, B, T, K, hd), kpos (L, T)}
+                    ssm: {h (L, B, nh, hd, N) f32, conv (L, B, W-1, C)}
+                    hybrid: {super: {ssm (Ns, P-1, ..), attn (Ns, ..)},
+                             tail (Nt, ..)}
   dense slot cache  (L, B, T, K, hd)          one linear row per slot
   paged pool        (L, n_pages, ps, K, hd)   rows read through page maps
+
+The serving engine's ragged, chunked and paged steps need an attention
+cache: dense and MoE only. The VLM and audio families are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -22,104 +34,161 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (ParamTree, apply_norm, as_dtype,
-                                       dtype_of, embed, layer, mlp, unembed)
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (Init, ParamTree, apply_norm, as_dtype,
+                                       dtype_of, embed, layer, mlp, rmsnorm,
+                                       unembed)
 
 Params = Dict[str, Any]
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.arch_type != "dense":
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.arch_type in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} is not ported; the "
-            f"port runs the dense family (ROADMAP C7: MoE/VLM/audio/SSM)")
+            f"port runs the dense, MoE, SSM and hybrid families (ROADMAP "
+            f"C7: the VLM and audio families)")
+    if cfg.arch_type not in FAMILIES:
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
+
+
+def _check_attention_cache(cfg: ArchConfig) -> None:
+    """The engine's steps keep one KV row per slot: dense and MoE only."""
+    _check_family(cfg)
+    if cfg.arch_type not in ("dense", "moe"):
+        raise ValueError(f"{cfg.name}: the serving steps need an attention "
+                         f"cache (dense/moe), not {cfg.arch_type!r}")
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def _norm(cfg: ArchConfig, dtype, lead=()) -> Params:
-    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype)}
+def _norm(init: Init, cfg: ArchConfig, dtype, lead=()) -> Params:
+    p = {"scale": init.full(lead + (cfg.d_model,), 1.0, dtype)}
     if cfg.attn_bias:                                    # layernorm
-        p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype)
+        p["bias"] = init.full(lead + (cfg.d_model,), 0.0, dtype)
     return p
 
 
-def _init_mlp(gen: torch.Generator, d: int, ff: int, act: str, bias: bool,
+def _init_mlp(init: Init, path: str, d: int, ff: int, act: str, bias: bool,
               dtype, lead=()) -> Params:
-    def normal(*shape):
-        return torch.randn(lead + shape, generator=gen)
+    def normal(name, shape, scale):
+        return init.normal(f"{path}/{name}", lead + shape, scale, dtype)
 
     if act in ("silu", "gelu_glu"):
-        return {"w_gate": (normal(d, ff) * d ** -0.5).to(dtype),
-                "w_up": (normal(d, ff) * d ** -0.5).to(dtype),
-                "w_down": (normal(ff, d) * ff ** -0.5).to(dtype)}
-    p = {"w_up": (normal(d, ff) * d ** -0.5).to(dtype),
-         "w_down": (normal(ff, d) * ff ** -0.5).to(dtype)}
+        return {"w_gate": normal("w_gate", (d, ff), d ** -0.5),
+                "w_up": normal("w_up", (d, ff), d ** -0.5),
+                "w_down": normal("w_down", (ff, d), ff ** -0.5)}
+    p = {"w_up": normal("w_up", (d, ff), d ** -0.5),
+         "w_down": normal("w_down", (ff, d), ff ** -0.5)}
     if bias:
-        p["b_up"] = torch.zeros(lead + (ff,), dtype=dtype)
-        p["b_down"] = torch.zeros(lead + (d,), dtype=dtype)
+        p["b_up"] = init.full(lead + (ff,), 0.0, dtype)
+        p["b_down"] = init.full(lead + (d,), 0.0, dtype)
     return p
+
+
+def _init_attn_half(init: Init, path: str, cfg: ArchConfig, dtype,
+                    lead) -> Params:
+    return {"ln1": _norm(init, cfg, dtype, lead),
+            "attn": attn_mod.init_attention(
+                init, f"{path}/attn", cfg.d_model, cfg.n_heads,
+                cfg.n_kv_heads, cfg.head_dim, qk_norm=cfg.qk_norm,
+                bias=cfg.attn_bias, dtype=dtype, lead=lead),
+            "ln2": _norm(init, cfg, dtype, lead)}
+
+
+def _init_attn_block(init: Init, path: str, cfg: ArchConfig, dtype,
+                     lead) -> Params:
+    return {**_init_attn_half(init, path, cfg, dtype, lead),
+            "mlp": _init_mlp(init, f"{path}/mlp", cfg.d_model, cfg.d_ff,
+                             cfg.mlp_act, cfg.attn_bias, dtype, lead)}
+
+
+def _init_moe_block(init: Init, path: str, cfg: ArchConfig, dtype,
+                    lead) -> Params:
+    m = cfg.moe
+    p = {**_init_attn_half(init, path, cfg, dtype, lead),
+         "moe": moe_mod.init_moe(init, f"{path}/moe", cfg.d_model, m, dtype,
+                                 lead)}
+    if m.shared_expert:
+        p["shared"] = _init_mlp(init, f"{path}/shared", cfg.d_model,
+                                m.d_ff_expert, "silu", False, dtype, lead)
+    if m.dense_residual:
+        p["dense"] = _init_mlp(init, f"{path}/dense", cfg.d_model, cfg.d_ff,
+                               "silu", False, dtype, lead)
+    return p
+
+
+def _init_ssm_block(init: Init, path: str, cfg: ArchConfig, dtype,
+                    lead) -> Params:
+    return {"ln": {"scale": init.full(lead + (cfg.d_model,), 1.0, dtype)},
+            "ssm": ssm_mod.init_ssm(init, f"{path}/ssm", cfg.d_model,
+                                    cfg.ssm, dtype, lead)}
+
+
+def _hybrid_split(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(period, supers, tail layers) of a hybrid stack."""
+    p = cfg.hybrid_attn_period
+    return p, cfg.n_layers // p, cfg.n_layers % p
+
+
+def _build(cfg: ArchConfig, init: Init) -> Params:
+    _check_family(cfg)
+    dtype = dtype_of(cfg.param_dtype)
+    vd = (cfg.vocab_size, cfg.d_model)
+    tree: Params = {"embed": init.normal("embed", vd, 0.02, dtype),
+                    "final_norm": _norm(init, cfg, dtype)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = init.normal("lm_head", vd, 0.02, dtype)
+    L = (cfg.n_layers,)
+    if cfg.arch_type == "dense":
+        tree["blocks"] = _init_attn_block(init, "blocks", cfg, dtype, L)
+    elif cfg.arch_type == "moe":
+        tree["blocks"] = _init_moe_block(init, "blocks", cfg, dtype, L)
+    elif cfg.arch_type == "ssm":
+        tree["blocks"] = _init_ssm_block(init, "blocks", cfg, dtype, L)
+    else:
+        period, ns, nt = _hybrid_split(cfg)
+        tree["super"] = {
+            "ssm": _init_ssm_block(init, "super/ssm", cfg, dtype,
+                                   (ns, period - 1)),
+            "attn": _init_attn_block(init, "super/attn", cfg, dtype, (ns,))}
+        if nt:
+            tree["tail"] = _init_ssm_block(init, "tail", cfg, dtype, (nt,))
+    return tree
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: DeviceLike = "cuda") -> ParamTree:
-    """Random weights from ``torch.Generator().manual_seed(seed)``, drawn
-    on the CPU (the same numbers whatever the device) and moved to
-    ``device``. Same tree and scales as the JAX ``init_params``; the
-    numbers differ (tests carry JAX weights across with
+    """Random weights on ``device``: each leaf drawn in chunks from
+    generators keyed by ``seed`` and the leaf's path (``layers.Init``),
+    so the same numbers whatever the device, a few chunks of host memory
+    at a time, on every core. Same tree, scales and dtypes as the JAX
+    ``init_params`` (the router, ``A_log``, ``D`` and ``dt_bias`` stay
+    float32); the numbers differ (tests carry JAX weights across with
     ``checkpoint.convert.params_from_jax``)."""
-    _check_dense(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(int(seed))
-    dtype = dtype_of(cfg.param_dtype)
-    L = (cfg.n_layers,)
-    tree: Params = {
-        "embed": (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen)
-                  * 0.02).to(dtype),
-        "final_norm": _norm(cfg, dtype)}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = (torch.randn(cfg.vocab_size, cfg.d_model,
-                                       generator=gen) * 0.02).to(dtype)
-    tree["blocks"] = {
-        "ln1": _norm(cfg, dtype, L),
-        "attn": attn_mod.init_attention(
-            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            qk_norm=cfg.qk_norm, bias=cfg.attn_bias, dtype=dtype, lead=L),
-        "ln2": _norm(cfg, dtype, L),
-        "mlp": _init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
-                         cfg.attn_bias, dtype, L)}
-    return ParamTree(tree).to(dev)
+    init = Init(seed, resolve_device(device))
+    try:
+        return ParamTree(_build(cfg, init))
+    finally:
+        init.close()
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The parameter tree on the ``meta`` device: every leaf's shape and
+    dtype, nothing allocated."""
+    return _build(cfg, Init(0, torch.device("meta")))
 
 
 def param_shapes(cfg: ArchConfig) -> Params:
     """The parameter tree's leaf shapes (nested dict of tuples) — what
     ``init_params`` makes and ``params_from_jax`` checks against."""
-    _check_dense(cfg)
-    L = cfg.n_layers
-    d, H, K, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    norm = {"scale": (d,), **({"bias": (d,)} if cfg.attn_bias else {})}
-    attn = {"wq": (L, d, H, hd), "wk": (L, d, K, hd), "wv": (L, d, K, hd),
-            "wo": (L, H, hd, d)}
-    if cfg.attn_bias:
-        attn.update(bq=(L, H, hd), bk=(L, K, hd), bv=(L, K, hd), bo=(L, d))
-    if cfg.qk_norm:
-        attn.update(q_norm={"scale": (L, hd)}, k_norm={"scale": (L, hd)})
-    if cfg.mlp_act in ("silu", "gelu_glu"):
-        mlp_p = {"w_gate": (L, d, ff), "w_up": (L, d, ff),
-                 "w_down": (L, ff, d)}
-    else:
-        mlp_p = {"w_up": (L, d, ff), "w_down": (L, ff, d),
-                 **({"b_up": (L, ff), "b_down": (L, d)}
-                    if cfg.attn_bias else {})}
-    lnorm = {k: (L,) + v for k, v in norm.items()}
-    tree = {"embed": (cfg.vocab_size, d), "final_norm": norm,
-            "blocks": {"ln1": lnorm, "attn": attn, "ln2": dict(lnorm),
-                       "mlp": mlp_p}}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = (cfg.vocab_size, d)
-    return tree
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else tuple(v.shape)
+                for k, v in t.items()}
+    return walk(abstract_params(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -130,9 +199,24 @@ def _embed_in(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
                     dtype_of(cfg.activ_dtype))
 
 
-def _ffn(bp: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _ffn(bp: Params, h: torch.Tensor, cfg: ArchConfig,
+         aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """The block's second half: norm, then the dense MLP or the MoE layer
+    (with the shared expert / dense residual); the MoE's load-balance
+    loss goes to ``aux`` when given."""
     hh = apply_norm(bp["ln2"], h, cfg.norm_eps)
-    return h + mlp(bp["mlp"], hh, cfg.mlp_act)
+    if "moe" not in bp:
+        return h + mlp(bp["mlp"], hh, cfg.mlp_act)
+    moe_fn = moe_mod.moe_ffn_sorted if cfg.moe.impl == "sort" \
+        else moe_mod.moe_ffn
+    y, a = moe_fn(bp["moe"], hh, cfg.moe)
+    if aux is not None:
+        aux.append(a)
+    if "shared" in bp:
+        y = y + mlp(bp["shared"], hh, "silu")
+    if "dense" in bp:
+        y = y + mlp(bp["dense"], hh, "silu")
+    return h + y
 
 
 def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -144,8 +228,8 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Full forward (training path)
 # ---------------------------------------------------------------------------
-def _attn_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
+def apply_attn_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
+                     cfg: ArchConfig) -> torch.Tensor:
     h = apply_norm(bp["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(
         bp["attn"], h, positions, causal=True, window=cfg.sliding_window,
@@ -153,27 +237,71 @@ def _attn_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     return _ffn(bp, x, cfg)
 
 
+def apply_moe_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = apply_norm(bp["ln1"], x, cfg.norm_eps)
+    x = x + attn_mod.attention(
+        bp["attn"], h, positions, causal=True, window=cfg.sliding_window,
+        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
+    aux: List[torch.Tensor] = []
+    x = _ffn(bp, x, cfg, aux)
+    return x, aux[0]
+
+
+def apply_ssm_block(bp: Params, x: torch.Tensor,
+                    cfg: ArchConfig) -> torch.Tensor:
+    h = rmsnorm(bp["ln"], x, cfg.norm_eps)
+    return x + ssm_mod.ssm_forward(bp["ssm"], h, cfg.d_model, cfg.ssm)
+
+
+def _apply_super(sp: Params, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """A hybrid super-block: P-1 SSM blocks, then an attention block."""
+    for j in range(cfg.hybrid_attn_period - 1):
+        x = apply_ssm_block(layer(sp["ssm"], j), x, cfg)
+    return apply_attn_block(sp["attn"], x, positions, cfg)
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (logits (B,S,V) f32, aux loss 0), the dense family
-    only. Layer ``i`` reads the ``[i]`` views of the blocks' stacked
-    leaves, so autograd writes each gradient into the stacked leaf the
-    flat buffer holds. ``remat=True`` recomputes each block's activations
-    in the backward pass (``torch.utils.checkpoint``), as the JAX
-    forward's ``jax.checkpoint`` does."""
-    _check_dense(cfg)
+    """tokens (B,S) -> (logits (B,S,V) f32, aux loss: the MoE blocks'
+    load-balance losses summed, else 0). Layer ``i`` reads the ``[i]``
+    views of the stacked leaves, so autograd writes each gradient into
+    the stacked leaf the flat buffer holds. ``remat=True`` recomputes
+    each block's (a hybrid's: each super-block's) activations in the
+    backward pass (``torch.utils.checkpoint``), as the JAX forward's
+    ``jax.checkpoint`` does."""
+    _check_family(cfg)
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
-    for i in range(cfg.n_layers):
-        bp = layer(params["blocks"], i)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(fn, *args):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _attn_block, bp, x, positions, cfg, use_reentrant=False)
-        else:
-            x = _attn_block(bp, x, positions, cfg)
-    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        return fn(*args)
+
+    if cfg.arch_type in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            bp = layer(params["blocks"], i)
+            if cfg.arch_type == "moe":
+                x, a = run(apply_moe_block, bp, x, positions, cfg)
+                aux = aux + a
+            else:
+                x = run(apply_attn_block, bp, x, positions, cfg)
+    elif cfg.arch_type == "ssm":
+        for i in range(cfg.n_layers):
+            x = run(apply_ssm_block, layer(params["blocks"], i), x, cfg)
+    else:
+        _, ns, nt = _hybrid_split(cfg)
+        for s in range(ns):
+            x = run(_apply_super, layer(params["super"], s), x, positions,
+                    cfg)
+        for i in range(nt):
+            x = run(apply_ssm_block, layer(params["tail"], i), x, cfg)
+    return _head(params, cfg, x), aux
 
 
 def _take_cols(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -186,22 +314,74 @@ def _take_cols(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Single-shot path: prefill + lockstep decode over a kpos-tagged cache
 # ---------------------------------------------------------------------------
+def _stack(tree: Params, lead: Tuple[int, ...]) -> Params:
+    return {n: t.expand(*lead, *t.shape).contiguous() for n, t in tree.items()}
+
+
 def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int,
                       device: DeviceLike = "cuda") -> Params:
-    """``{"layers": {"k", "v", "kpos"}}`` with a leading ``L`` axis; a
-    sliding-window arch gets a ring of ``min(window, cache_len)`` slots.
-    ``kpos`` starts at ``-1`` (empty)."""
-    _check_dense(cfg)
+    """The decode cache with leading per-stack axes (module docstring).
+    A sliding-window arch's attention caches are rings of
+    ``min(window, cache_len)`` slots; ``kpos`` starts at ``-1`` (empty),
+    SSM states at zero."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    adt = dtype_of(cfg.activ_dtype)
     eff = min(cfg.sliding_window, cache_len) if cfg.sliding_window \
         else cache_len
-    one = attn_mod.init_cache(batch, eff, cfg.n_kv_heads, cfg.head_dim,
-                              dtype_of(cfg.activ_dtype), device)
-    return {"layers": {n: t.expand(cfg.n_layers, *t.shape).contiguous()
-                       for n, t in one.items()}}
+
+    def attn(lead):
+        return _stack(attn_mod.init_cache(batch, eff, cfg.n_kv_heads,
+                                          cfg.head_dim, adt, dev), lead)
+
+    def ssm(lead):
+        return ssm_mod.init_ssm_state(batch, cfg.d_model, cfg.ssm, adt, dev,
+                                      lead)
+
+    if cfg.arch_type in ("dense", "moe"):
+        return {"layers": attn((cfg.n_layers,))}
+    if cfg.arch_type == "ssm":
+        return {"layers": ssm((cfg.n_layers,))}
+    period, ns, nt = _hybrid_split(cfg)
+    cache = {"super": {"ssm": ssm((ns, period - 1)), "attn": attn((ns,))}}
+    if nt:
+        cache["tail"] = ssm((nt,))
+    return cache
 
 
-def _layer_cache(cache: Params, i: int) -> Params:
-    return {n: cache["layers"][n][i] for n in ("k", "v", "kpos")}
+def _at(tree: Params, *idx: int) -> Params:
+    """The ``[idx]`` views of a cache subtree's leaves."""
+    return {n: t[idx] for n, t in tree.items()}
+
+
+def _put(tree: Params, new: Params) -> None:
+    for n, t in new.items():
+        tree[n].copy_(t)
+
+
+def _ssm_stack_prefill(params: Params, states: Params, x: torch.Tensor,
+                       cfg: ArchConfig, n: int, idx=()) -> torch.Tensor:
+    """Prefill through ``n`` stacked SSM blocks, writing each block's
+    decode state into ``states``' ``[*idx, i]`` views."""
+    for i in range(n):
+        bp = layer(params, i)
+        hh = rmsnorm(bp["ln"], x, cfg.norm_eps)
+        y, st = ssm_mod.ssm_prefill(bp["ssm"], hh, cfg.d_model, cfg.ssm)
+        _put(_at(states, *idx, i), st)
+        x = x + y
+    return x
+
+
+def _ssm_stack_decode(params: Params, states: Params, x: torch.Tensor,
+                      cfg: ArchConfig, n: int, idx=()) -> torch.Tensor:
+    for i in range(n):
+        bp = layer(params, i)
+        hh = rmsnorm(bp["ln"], x, cfg.norm_eps)
+        st = _at(states, *idx, i)
+        y, new = ssm_mod.ssm_decode(bp["ssm"], hh, st, cfg.d_model, cfg.ssm)
+        _put(st, new)
+        x = x + y
+    return x
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -213,8 +393,14 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     Returns (last-token logits (B,1,V), cache). ``lengths`` (B,) makes the
     batch ragged: row b's prompt is ``tokens[b, :lengths_b]`` and its
     logits are column ``lengths_b - 1`` — causal masking keeps the padded
-    tail out of every valid position."""
-    _check_dense(cfg)
+    tail out of every valid position. Ragged prompts need an attention
+    cache (an SSM state would consume the padding); a MoE routes the
+    padded tail too, with capacity from the padded length, so it is
+    exact only while no expert overflows."""
+    _check_family(cfg)
+    if lengths is not None and cfg.arch_type not in ("dense", "moe"):
+        raise ValueError(f"ragged prefill needs an attention cache, not "
+                         f"{cfg.arch_type!r}")
     B, S = tokens.shape
     w = cfg.sliding_window
     if cache_len is None:
@@ -226,13 +412,30 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     cache = init_decode_cache(cfg, B, cache_len, device=tokens.device)
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_layers):
-        bp = layer(params["blocks"], i)
+
+    def attn_block(bp, x, cl):
         hh = apply_norm(bp["ln1"], x, cfg.norm_eps)
         a, _ = attn_mod.attention_prefill(
-            bp["attn"], hh, positions, cache=_layer_cache(cache, i),
-            window=w, use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
-        x = _ffn(bp, x + a, cfg)
+            bp["attn"], hh, positions, cache=cl, window=w,
+            use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
+        return _ffn(bp, x + a, cfg)
+
+    if cfg.arch_type in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            x = attn_block(layer(params["blocks"], i), x,
+                           _at(cache["layers"], i))
+    elif cfg.arch_type == "ssm":
+        x = _ssm_stack_prefill(params["blocks"], cache["layers"], x, cfg,
+                               cfg.n_layers)
+    else:
+        period, ns, nt = _hybrid_split(cfg)
+        for s in range(ns):
+            sp = layer(params["super"], s)
+            x = _ssm_stack_prefill(sp["ssm"], cache["super"]["ssm"], x, cfg,
+                                   period - 1, (s,))
+            x = attn_block(sp["attn"], x, _at(cache["super"]["attn"], s))
+        if nt:
+            x = _ssm_stack_prefill(params["tail"], cache["tail"], x, cfg, nt)
     x = x[:, -1:, :] if lengths is None else _take_cols(x, lengths)
     return _head(params, cfg, x), cache
 
@@ -243,17 +446,33 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
     """ONE-token lockstep decode: token (B,1), ``pos`` the one absolute
     position of every row (an int or 0-d tensor). Writes the cache in
     place. Returns (logits (B,1,V), cache)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     x = _embed_in(params, cfg, token)
     pos = torch.as_tensor(pos, device=x.device)
-    for i in range(cfg.n_layers):
-        bp = layer(params["blocks"], i)
+
+    def attn_block(bp, x, cl):
         hh = apply_norm(bp["ln1"], x, cfg.norm_eps)
         a, _ = attn_mod.attention_decode(
-            bp["attn"], hh, pos, cache=_layer_cache(cache, i),
-            window=cfg.sliding_window, use_rope=cfg.use_rope,
-            rope_theta=cfg.rope_theta)
-        x = _ffn(bp, x + a, cfg)
+            bp["attn"], hh, pos, cache=cl, window=cfg.sliding_window,
+            use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
+        return _ffn(bp, x + a, cfg)
+
+    if cfg.arch_type in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            x = attn_block(layer(params["blocks"], i), x,
+                           _at(cache["layers"], i))
+    elif cfg.arch_type == "ssm":
+        x = _ssm_stack_decode(params["blocks"], cache["layers"], x, cfg,
+                              cfg.n_layers)
+    else:
+        period, ns, nt = _hybrid_split(cfg)
+        for s in range(ns):
+            sp = layer(params["super"], s)
+            x = _ssm_stack_decode(sp["ssm"], cache["super"]["ssm"], x, cfg,
+                                  period - 1, (s,))
+            x = attn_block(sp["attn"], x, _at(cache["super"]["attn"], s))
+        if nt:
+            x = _ssm_stack_decode(params["tail"], cache["tail"], x, cfg, nt)
     return _head(params, cfg, x), cache
 
 
@@ -268,7 +487,7 @@ def decode_step_ragged(params, cfg: ArchConfig, token: torch.Tensor,
     token: (B,1); pos: (B,); live: (B,) bool. ``flash=True`` runs the
     attention contraction in the flash-decode kernel (same cache writes).
     Returns (logits (B,1,V), cache)."""
-    _check_dense(cfg)
+    _check_attention_cache(cfg)
     attn_fn = attn_mod.attention_decode_ragged_flash if flash \
         else attn_mod.attention_decode_ragged
     plan = attn_mod.dense_decode_plan(
@@ -295,7 +514,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor,
     returns the WHOLE chunk's logits (B,C,V) instead — the speculative
     verify shape, whose column ``clen-1`` equals the default path's bit
     for bit."""
-    _check_dense(cfg)
+    _check_attention_cache(cfg)
     x = _embed_in(params, cfg, tokens)
     for i in range(cfg.n_layers):
         bp = layer(params["blocks"], i)
@@ -383,7 +602,7 @@ def decode_step_ragged_paged_flash(params, cfg: ArchConfig,
     flash-decode kernel: no gather/scatter round trip. Each layer's
     attention reads ``rmap`` inside the kernel and the new token's KV
     lands on one (page, offset) cell through ``wmap``."""
-    _check_dense(cfg)
+    _check_attention_cache(cfg)
     kb = pool["layers"]["k"]
     plan = attn_mod.paged_decode_plan(
         pos, live, rmap, wmap, kb.shape[2], kb.shape[1], cfg.head_dim,

@@ -65,6 +65,7 @@ so freed rows never need scrubbing.
 from __future__ import annotations
 
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
@@ -198,14 +199,29 @@ class ServingEngine:
 
     def __init__(self, params: ParamTree, cfg: ArchConfig, *,
                  serving: ServingConfig, device: DeviceLike = "cuda"):
-        if cfg.arch_type != "dense":
-            raise NotImplementedError(
-                f"ServingEngine serves the dense family; "
-                f"arch_type={cfg.arch_type!r} is ROADMAP C7")
+        if cfg.arch_type not in ("dense", "moe"):
+            raise ValueError(
+                f"ServingEngine supports attention-cached LM archs "
+                f"(dense/moe), not {cfg.arch_type!r}")
         if cfg.sliding_window and serving.max_seq > cfg.sliding_window:
             raise ValueError(
                 f"max_seq={serving.max_seq} exceeds sliding_window="
                 f"{cfg.sliding_window}: the slot cache is linear (no ring)")
+        if cfg.arch_type == "moe" and \
+                cfg.moe.capacity_factor * cfg.moe.experts_per_token \
+                < cfg.moe.n_experts:
+            # per-row expert capacity ceil(S*k/E*cf) comes from the PADDED
+            # prefill length and the junk tail is routed too; only
+            # cf >= E/k guarantees no row can overflow, so below that a
+            # ragged batch may part from an unpadded run when routing is
+            # skewed (transformer.prefill's docstring)
+            warnings.warn(
+                f"{cfg.name}: MoE capacity_factor="
+                f"{cfg.moe.capacity_factor} can bind under padded ragged "
+                f"prefill (needs >= n_experts/experts_per_token = "
+                f"{cfg.moe.n_experts / cfg.moe.experts_per_token:.2f} for "
+                f"exactness); outputs are approximate when an expert "
+                f"overflows", stacklevel=2)
         self.device = resolve_device(device)
         pdev = params["embed"].device
         if pdev.type != self.device.type:
@@ -219,9 +235,6 @@ class ServingEngine:
                 raise ValueError(
                     f"speculative draft must be an attention LM "
                     f"(dense/moe), not {dcfg.arch_type!r}")
-            if dcfg.arch_type != "dense":
-                raise NotImplementedError(
-                    "a MoE speculative draft is ROADMAP C7")
             if dcfg.vocab_size < cfg.vocab_size:
                 raise ValueError(
                     f"speculative draft vocab_size={dcfg.vocab_size} "

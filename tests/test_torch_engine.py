@@ -244,14 +244,23 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "             n.startswith('jax.') or n == 'repro' or\n"
         "             n.startswith('repro.'))\n"
         "n = sum(1 for m in sys.modules if m.startswith('repro_torch'))\n"
-        "print('BAD', bad, 'PORT', n)\n")
+        "new = [m for m in NEW if m not in sys.modules]\n"
+        "print('BAD', bad, 'MISSING', new, 'PORT', n)\n")
+    # the model families' modules and every config file (slice 10)
+    new = ["repro_torch.models.moe", "repro_torch.models.ssm",
+           "repro_torch.configs.all_configs"] + [
+        f"repro_torch.configs.{c}" for c in (
+            "arctic_480b", "command_r_plus_104b", "granite_8b",
+            "llama4_scout_17b_a16e", "mamba2_780m", "minitron_8b",
+            "paligemma_3b", "qwen3_4b", "whisper_large_v3", "zamba2_7b")]
+    code = f"NEW = {new!r}\n" + code
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     line = proc.stdout.strip().splitlines()[-1]
-    assert line.startswith("BAD [] PORT "), line
-    assert int(line.split()[-1]) >= 58
+    assert line.startswith("BAD [] MISSING [] PORT "), line
+    assert int(line.split()[-1]) >= 81
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

@@ -132,7 +132,7 @@ def test_unported_forward_paths_raise(lm):
         t_attn.attention(t_layers.layer(tp["blocks"], 0)["attn"], x,
                          torch.arange(4), xkv=x)
     with pytest.raises(NotImplementedError, match="ROADMAP C7"):
-        t_tf.forward(tp, dataclasses.replace(tcfg, arch_type="moe"),
+        t_tf.forward(tp, dataclasses.replace(tcfg, arch_type="vlm"),
                      torch.zeros(1, 4, dtype=torch.int32))
 
 

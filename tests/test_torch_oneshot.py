@@ -230,7 +230,7 @@ def test_serve_batch_device_rule(model):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_batch(tp, tcfg, prompts, 2, device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP C7"):
-        serve_batch(tp, dataclasses.replace(tcfg, arch_type="ssm"),
+        serve_batch(tp, dataclasses.replace(tcfg, arch_type="audio"),
                     prompts, 2)
 
 
