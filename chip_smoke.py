@@ -166,6 +166,24 @@ result):
    the chunked scan);
 9i. ssm-small — both ``.reduced()``, f32: single-shot tokens card = CPU,
    logits within 1e-4;
+9j. vlm / audio (slice 11) — ``paligemma-3b`` (18 layers, d 2048, 8/1
+   heads of 256, 256 patch tokens, vocab 257 216, tied head) and
+   ``whisper-large-v3`` (32 encoder + 32 decoder layers, d 1280, 20
+   heads of 64, 1500 frames, vocab 51 866) at full width and depth, as
+   9h, with the launcher's random patch / frame embeddings (the vision
+   tower and the audio frontend are stubs): bf16 timed, float32 tokens =
+   the growing ``forward(prefix= / frames=)`` (the encoder re-run every
+   step) up to the first near tie (gaps < 1e-2); the tree's parameter
+   count;
+9k. c7-small — both ``.reduced()``, f32: ``forward`` logits card = CPU
+   within 1e-4, single-shot tokens equal and logits within 1e-4; then
+   the VLM's ragged decode steps, 4 steps from a ragged prefix-offset
+   prefill, the flash arm (``decode_step_ragged(flash=True)`` over the
+   dense slot cache and ``decode_step_ragged_paged_flash`` over a page
+   pool) against the plain arm on the same tokens: live rows' logits and
+   the caches within 2e-5, the first layer's cache bit for bit;
+   flash_decode launched once per layer per step (counters reset just
+   before, read just after);
 10. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
@@ -2895,9 +2913,10 @@ def oneshot_logits(fn, rec: list):
 
 def run_oneshot(params, cfg):
     """``launch.serve``'s single-shot path (``_serve_oneshot``: 4 x 24
-    prompts from ``--seed 0``, 12 generated) with the prefill and every
-    lockstep decode step recorded. Returns (tokens (4, 12) CPU,
-    [(seconds, logits (4, V))] per step)."""
+    prompts from ``--seed 0``, with a VLM's patch or the audio family's
+    frame embeddings, 12 generated) with the prefill and every lockstep
+    decode step recorded. Returns (tokens (4, 12) CPU, [(seconds, logits
+    (4, V))] per step, the launcher's output)."""
     rec = []
     prefill, decode_step = serve_mod.tf.prefill, serve_mod.tf.decode_step
     serve_mod.tf.prefill = oneshot_logits(prefill, rec)
@@ -2911,27 +2930,34 @@ def run_oneshot(params, cfg):
     return out, rec, log.getvalue()
 
 
-def growing_forward(params, cfg, prompts: np.ndarray,
-                    out: torch.Tensor) -> torch.Tensor:
+def growing_forward(params, cfg, prompts: np.ndarray, out: torch.Tensor,
+                    **kw) -> torch.Tensor:
     """The cacheless greedy reference of ``serve_batch``'s tokens: for
     each generated position t, a ``forward`` over the prompt and the
-    first t tokens, its last column's logits: (B, G, V) float32, CPU."""
-    seq = torch.cat([torch.tensor(prompts), out], dim=1).to("cuda")
+    first t tokens (with the same ``prefix=`` / ``frames=``; an audio
+    model's encoder runs again each time), its last column's logits:
+    (B, G, V) float32, CPU."""
+    dev = params["embed"].device
+    seq = torch.cat([torch.tensor(prompts), out], dim=1).to(dev)
+    kw = {k: torch.as_tensor(v, device=dev) for k, v in kw.items()}
     P, G = prompts.shape[1], out.shape[1]
     with torch.inference_mode():
         return torch.stack([tf.forward(params, cfg, seq[:, :P + t],
-                                       remat=False)[0][:, -1].float().cpu()
-                            for t in range(G)], dim=1)
+                                       remat=False, **kw)[0][:, -1]
+                            .float().cpu() for t in range(G)], dim=1)
 
 
 def phase_ssm(card: str, name: str) -> dict:
-    """mamba2-780m / zamba2-7b at full width and depth through the
-    launcher's single-shot path: in the config's bf16 (timed), then in
-    float32, where the tokens are held against a cacheless forward over
-    the growing sequence (the recurrent decode and its conv ring against
-    the chunked scan). In bf16 the two paths' rounding parts their
-    logits by O(std) within a few steps at this depth (PERF.md, PR 20),
-    so there the drift is printed, not gated."""
+    """mamba2-780m / zamba2-7b (and since slice 11 paligemma-3b /
+    whisper-large-v3) at full width and depth through the launcher's
+    single-shot path: in the config's bf16 (timed), then in float32,
+    where the tokens are held against a cacheless forward over the
+    growing sequence (the recurrent decode and its conv ring against the
+    chunked scan; the KV caches, the VLM's prefix offset and the audio
+    decoder's cross K/V against whole-sequence attention). In bf16 the
+    two paths' rounding parts their logits by O(std) within a few steps
+    at this depth (PERF.md §6), so there the drift is printed, not
+    gated."""
     base = get_config(name)
     res = {"arch": name}
     for dtype in ("bfloat16", "float32"):
@@ -2947,13 +2973,13 @@ def phase_ssm(card: str, name: str) -> dict:
         out, rec, log = run_oneshot(params, cfg)
         peak = torch.cuda.max_memory_allocated()
         B, G = out.shape
-        prompts = serve_mod.oneshot_prompts(cfg, 0)
+        prompts, kw = serve_mod.oneshot_inputs(cfg, 0)
         if (B, G) != (serve_mod.ONESHOT_BATCH, serve_mod.ONESHOT_GEN) \
                 or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size \
                 or not all(bool(torch.isfinite(r[1]).all()) for r in rec):
             raise AssertionError(f"[{base.arch_type}] {name} {dtype}: "
                                  f"tokens {tuple(out.shape)} or logits bad")
-        fl = growing_forward(params, cfg, prompts, out)
+        fl = growing_forward(params, cfg, prompts, out, **kw)
         sl = torch.stack([r[1] for r in rec], dim=1)            # (B, G, V)
         drift = (fl - sl).abs().amax(dim=(0, 2)).tolist()       # per step
         r = {"n_params": sum(q.numel() for q in params.parameters()),
@@ -2976,8 +3002,12 @@ def phase_ssm(card: str, name: str) -> dict:
         res[dtype] = r
         del params, fl, sl
     bf, f32r = res["bfloat16"], res["float32"]
-    print(f"[{base.arch_type}] {name} full width, full depth ({base.n_layers} "
-          f"layers, d {base.d_model}, {bf['n_params'] / 1e9:.2f} G params) "
+    depth = f"{base.n_encoder_layers} + {base.n_layers}" if base.enc_dec \
+        else f"{base.n_layers}"
+    extra = {"vlm": f", {base.n_prefix_tokens} patch tokens",
+             "audio": f", {base.encoder_seq} frames"}.get(base.arch_type, "")
+    print(f"[{base.arch_type}] {name} full width, full depth ({depth} "
+          f"layers, d {base.d_model}{extra}, {bf['n_params']} params) "
           f"through the launcher's single-shot path ({B} x "
           f"{serve_mod.ONESHOT_PROMPT}, {G} generated): bf16 init "
           f"{bf['init_s']:.1f} s, prefill {bf['prefill_ms']:.1f} ms, lockstep "
@@ -3018,6 +3048,135 @@ def phase_ssm_small(card: str) -> dict:
               f"tokens card = CPU ({tg.numel()}), logits max |card - CPU| "
               f"{err:.2e} over {len(lg)} steps (bound {SSM_TOL:g}) | {card}")
     return out
+
+# ---------------------------------------------------------------------------
+# slice 11: the VLM and audio families
+# ---------------------------------------------------------------------------
+VLM_AUDIO_ARCHS = ("paligemma-3b", "whisper-large-v3")
+# [c7-small]: the reduced VLM's ragged steps from a ragged prefill of
+# these text lengths (row 3 dead), over a slot cache of RAGGED_T tokens
+# and a pool of RAGGED_PAGE-token pages, RAGGED_STEPS steps
+RAGGED_LENGTHS = (24, 20, 17, 24)
+RAGGED_T, RAGGED_PAGE, RAGGED_STEPS = 64, 16, 4
+
+
+def vlm_ragged_arms(params, cfg) -> dict:
+    """The reduced VLM's ragged decode steps on the card, flash arm
+    against plain arm on the same tokens (the plain arm's argmax): over
+    the dense slot cache (``decode_step_ragged``, the kernel reading each
+    row as pages under an identity map) and over a page pool
+    (``decode_step_ragged_paged_flash`` against
+    ``decode_step_ragged_paged``; a dead row's write map out of the
+    pool, as the engine maps it). Returns the flash steps' launches
+    (counters reset just before, read just after), the largest |flash -
+    plain| over live rows' logits and over the caches, and whether the
+    first layer's caches (written from equal inputs) are equal."""
+    dev = params["embed"].device
+    prompts, kw = serve_mod.oneshot_inputs(cfg, 0)
+    B = prompts.shape[0]
+    lengths = torch.tensor(RAGGED_LENGTHS, device=dev)
+    live = torch.tensor([True, True, True, False], device=dev)
+    with torch.inference_mode():
+        logits, cache = tf.prefill(
+            params, cfg, torch.tensor(prompts, device=dev),
+            prefix=torch.tensor(kw["prefix"], device=dev),
+            cache_len=RAGGED_T, lengths=lengths)
+        kv = {n: cache["layers"][n] for n in ("k", "v")}
+        nb = RAGGED_T // RAGGED_PAGE
+        rmap = torch.arange(B * nb, dtype=torch.int32,
+                            device=dev).reshape(B, nb)
+        wmap = torch.where(live[:, None], rmap, B * nb).to(torch.int32)
+
+        def dense():
+            return {"layers": {n: t.clone() for n, t in kv.items()}}
+
+        def pool():
+            return {"layers": {n: t.reshape(t.shape[0], B * nb, RAGGED_PAGE,
+                                            *t.shape[3:]).clone()
+                               for n, t in kv.items()}}
+        arms = {"dense": (dense(), dense()), "paged": (pool(), pool())}
+        tok = serve_mod.greedy_sample(logits)
+        err = 0.0
+        runtime.reset_counters()
+        for t in range(RAGGED_STEPS):
+            pos = lengths + cfg.n_prefix_tokens + t
+            lp, _ = tf.decode_step_ragged(params, cfg, tok, pos,
+                                          arms["dense"][0], live)
+            lf, _ = tf.decode_step_ragged(params, cfg, tok, pos,
+                                          arms["dense"][1], live, flash=True)
+            pp, _ = tf.decode_step_ragged_paged(
+                params, cfg, tok, pos, arms["paged"][0], live, rmap, wmap)
+            pf, _ = tf.decode_step_ragged_paged_flash(
+                params, cfg, tok, pos, arms["paged"][1], live, rmap, wmap)
+            for a, b in ((lf, lp), (pf, pp), (pp, lp)):
+                err = max(err, float((a[live] - b[live]).abs().max()))
+            tok = serve_mod.greedy_sample(lp)
+        launches = fd_ops.COUNTER.count
+    # the first layer writes the same k/v in both arms; later layers'
+    # inputs carry the kernel's rounding
+    first_equal = all(torch.equal(a["layers"][n][0], b["layers"][n][0])
+                      for a, b in arms.values() for n in ("k", "v"))
+    cache_err = max(float((a["layers"][n] - b["layers"][n]).abs().max())
+                    for a, b in arms.values() for n in ("k", "v"))
+    return {"launches": launches, "max_abs_err": err,
+            "first_layer_cache_equal": first_equal, "cache_err": cache_err}
+
+
+def phase_c7_small(card: str) -> dict:
+    """The reduced paligemma and whisper, f32: card against CPU, then the
+    VLM's ragged flash arm against its plain arm on the card."""
+    out = {}
+    for name in VLM_AUDIO_ARCHS:
+        cfg = get_config(name).reduced()
+        prompts, kw = serve_mod.oneshot_inputs(cfg, 0)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = tf.init_params(cfg, seed=0, device=dev)
+            with torch.inference_mode():
+                fwd, _ = tf.forward(
+                    params, cfg, torch.tensor(prompts, device=dev),
+                    remat=False, **{k: torch.tensor(v, device=dev)
+                                    for k, v in kw.items()})
+            runs[dev] = (params, fwd.cpu()) + run_oneshot(params, cfg)[:2]
+        if not same_params(runs["cpu"][0], runs["cuda"][0]):
+            raise AssertionError(f"[c7-small] {name}: init_params differs "
+                                 f"between the card and the CPU")
+        (_, fg, tg, lg), (_, fc, tc, lc) = runs["cuda"], runs["cpu"]
+        ferr = float((fg - fc).abs().max())
+        err = max(float((a[1] - b[1]).abs().max()) for a, b in zip(lg, lc))
+        if not torch.equal(tg, tc) or not max(err, ferr) <= SSM_TOL:
+            raise AssertionError(
+                f"[c7-small] {name}: tokens equal {torch.equal(tg, tc)}, "
+                f"forward logits max |card - CPU| {ferr}, single-shot "
+                f"logits {err} (bound {SSM_TOL})")
+        out[name] = {"forward_max_abs_err": ferr, "max_abs_err": err,
+                     "tokens": tg.numel()}
+        print(f"[c7-small] {name}.reduced() f32: forward logits max |card "
+              f"- CPU| {ferr:.2e}; single-shot tokens card = CPU "
+              f"({tg.numel()}), logits {err:.2e} over {len(lg)} steps "
+              f"(bound {SSM_TOL:g}) | {card}")
+        if cfg.arch_type == "vlm":
+            arms = vlm_ragged_arms(runs["cuda"][0], cfg)
+            want = cfg.n_layers * RAGGED_STEPS * 2
+            if arms["launches"] != want \
+                    or not arms["first_layer_cache_equal"] \
+                    or not max(arms["max_abs_err"], arms["cache_err"]) \
+                    <= TOL[torch.float32]:
+                raise AssertionError(f"[c7-small] {name} ragged flash arm: "
+                                     f"{arms} (want {want} launches, "
+                                     f"logits within {TOL[torch.float32]})")
+            out["ragged"] = arms
+            print(f"[c7-small] {name} ragged decode, {RAGGED_STEPS} steps "
+                  f"from text lengths {RAGGED_LENGTHS} after "
+                  f"{cfg.n_prefix_tokens} patches (row 3 dead): flash arm "
+                  f"(slot cache, {RAGGED_PAGE}-token page pool) = plain arm "
+                  f"within {arms['max_abs_err']:.2e}, caches "
+                  f"{arms['cache_err']:.2e} (bound {TOL[torch.float32]:g}; "
+                  f"the first layer's bit for bit); flash_decode "
+                  f"launched {arms['launches']} = {cfg.n_layers} layers x "
+                  f"{RAGGED_STEPS} steps x 2 arms | {card}")
+    return out
+
 
 # ---------------------------------------------------------------------------
 # slice 3: the public kernel API at full width
@@ -3557,6 +3716,13 @@ def main() -> int:
         t10 = time.perf_counter()
         slice10[name] = fn(card)
         slice10[name]["seconds"] = time.perf_counter() - t10
+    slice11 = {}
+    for name, fn in (("vlm", lambda c: phase_ssm(c, "paligemma-3b")),
+                     ("audio", lambda c: phase_ssm(c, "whisper-large-v3")),
+                     ("c7-small", phase_c7_small)):
+        t11 = time.perf_counter()
+        slice11[name] = fn(card)
+        slice11[name]["seconds"] = time.perf_counter() - t11
     moe_t = slice10["moe"]["timing"]
     main_api = phase_api(card)
     fa = phase_flash_attention(card, main_api)
@@ -3578,6 +3744,9 @@ def main() -> int:
          "launches_mixed_version": ts["launches_mixed_version"],
          "launches_serve": srv["launches"],
          "launches_moe": slice10["moe"]["launches"],
+         "launches_vlm_ragged": slice11["c7-small"]["ragged"]["launches"],
+         "max_abs_err_vlm_ragged": slice11["c7-small"]["ragged"][
+             "max_abs_err"],
          "moe_bf16": {k: moe_t[k] for k in ("ms", "ms_eager", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms", "live_tokens")},
@@ -3648,7 +3817,7 @@ def main() -> int:
          "oneshot": oneshot, "train": train,
          "reduce_lm": lm, "train_lm": train_lm, "train_serve": ts,
          "train_serve_small": ts_small, "slice9": slice9,
-         "slice10": slice10,
+         "slice10": slice10, "slice11": slice11,
          "api_launches": launches,
          "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
@@ -3664,6 +3833,9 @@ def main() -> int:
           + f"); slice 10's "
           f"{sum(v['seconds'] for v in slice10.values()):.1f} s ("
           + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice10.items())
+          + f"); slice 11's "
+          f"{sum(v['seconds'] for v in slice11.values()):.1f} s ("
+          + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice11.items())
           + ")")
     print(json.dumps({"kernels": rows}))
     print(card)

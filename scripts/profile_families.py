@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where a decode step's time goes for the MoE and the hybrid family,
-on one CUDA card.
+"""Where a decode step's time goes for the MoE, hybrid, VLM and audio
+families, on one CUDA card.
 
-    PYTHONPATH=src python3 scripts/profile_families.py
+    PYTHONPATH=src python3 scripts/profile_families.py \
+        [--archs llama4-scout-17b-a16e zamba2-7b paligemma-3b \
+         whisper-large-v3]
 
 ``llama4-scout-17b-a16e`` at full width with 4 of its 48 layers (bf16)
 serves ``chip_smoke.py``'s ``[moe]`` schedule (32 requests sized to 256
 positions, seed 1) through the paged engine with flash decode, once to
-warm up and once under ``torch.profiler``; ``zamba2-7b`` at full width
-and depth (bf16) runs ``launch.serve``'s single-shot batch (4 x 24
-prompts, 12 tokens) the same way. For each, it prints the host and
-device time per decode step (device = the sum of the kernels' time), the
-device's busy share of the wall time, and the ops with the most device
-time per step, each as a ``[prof]`` line, with the card's name and
-power limit.
+warm up and once under ``torch.profiler``; ``zamba2-7b``,
+``paligemma-3b`` and ``whisper-large-v3`` at full width and depth (bf16)
+run ``launch.serve``'s single-shot batch (4 x 24 prompts with the
+launcher's patch or frame embeddings, 12 tokens) the same way, the
+prefill profiled apart from the lockstep steps. For each, it prints the
+host and device time per decode step (device = the sum of the kernels'
+time), the device's busy share of the wall time, and the ops with the
+most device time per step, each as a ``[prof]`` line, with the card's
+name and power limit. With no ``--archs``, the first two.
 """
 from __future__ import annotations
 
@@ -27,8 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import (ONESHOT_GEN, oneshot_prompts,
-                                      serve_batch)
+from repro_torch.launch.serve import ONESHOT_GEN, oneshot_inputs
 from repro_torch.models import transformer as tf
 from repro_torch.serving import (PagingConfig, ServingConfig, ServingEngine,
                                  generate_requests)
@@ -87,30 +90,66 @@ def moe(rows: int, name: str) -> None:
            st.decode_dispatches, rows, name)
 
 
-def hybrid(rows: int, name: str) -> None:
-    cfg = get_config("zamba2-7b")
+def oneshot(arch: str, rows: int, name: str) -> None:
+    """``serve_batch``'s prefill, then its lockstep decode steps, each
+    profiled on its own (after a warm-up run of both)."""
+    cfg = get_config(arch)
     params = tf.init_params(cfg, seed=0, device="cuda")
-    prompts = oneshot_prompts(cfg, 0)
-    serve_batch(params, cfg, prompts, ONESHOT_GEN)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = serve_batch(params, cfg, prompts, ONESHOT_GEN)
+    dev = params["embed"].device
+    prompts, kw = oneshot_inputs(cfg, 0)
+    prompts = torch.tensor(prompts, device=dev)
+    kw = {k: torch.tensor(v, device=dev) for k, v in kw.items()}
+    P = prompts.shape[1] + (cfg.n_prefix_tokens if cfg.arch_type == "vlm"
+                            else 0)
+
+    def prefill():
+        logits, cache = tf.prefill(params, cfg, prompts, **kw)
+        return logits[:, -1].argmax(-1)[:, None].to(torch.int32), cache
+
+    def decode(tok, cache):
+        for t in range(ONESHOT_GEN - 1):
+            logits, cache = tf.decode_step(params, cfg, tok, P + t, cache)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        return tok
+
+    with torch.inference_mode():
+        decode(*prefill())
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    assert np.asarray(out.cpu()).shape == (4, ONESHOT_GEN)
-    report("zamba2-7b single-shot batch (prefill included) per lockstep "
-           "step", prof, wall, ONESHOT_GEN, rows, name)
+        for tag, steps in (("prefill", 1), ("decode", ONESHOT_GEN - 1)):
+            if tag == "decode":
+                tok, cache = prefill()
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = prefill()[0] if tag == "prefill" else decode(tok,
+                                                                   cache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            assert np.asarray(out.cpu()).shape == (4, 1)
+            report(f"{arch} single-shot batch, "
+                   + ("the prefill" if tag == "prefill"
+                      else "per lockstep step"), prof, wall, steps, rows,
+                   name)
+
+
+ARCHS = ("llama4-scout-17b-a16e", "zamba2-7b", "paligemma-3b",
+         "whisper-large-v3")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=12)
+    ap.add_argument("--archs", nargs="+", default=list(ARCHS[:2]),
+                    choices=ARCHS)
     args = ap.parse_args()
     name = card()
-    moe(args.rows, name)
-    torch.cuda.empty_cache()
-    hybrid(args.rows, name)
+    for arch in args.archs:
+        if arch == ARCHS[0]:
+            moe(args.rows, name)
+        else:
+            oneshot(arch, args.rows, name)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -12,11 +12,16 @@ from ``--seed``.
       --reduced --requests 8 --max-batch 4 --max-seq 64 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama4-scout-17b-a16e --reduced --device cpu
+  python -m repro_torch.launch.serve --arch paligemma-3b
+  python -m repro_torch.launch.serve --arch whisper-large-v3
 
 The default ``--arch`` is ``qwen3-4b``, as the reference's. Dense and MoE
-archs stream through the engine; SSM and hybrid archs (``mamba2-780m``,
-``zamba2-7b``) have no slot-cache engine and serve one reference batch
-through ``serve_batch`` (4 x 24 random prompts, 12 tokens each).
+archs stream through the engine; SSM, hybrid, VLM and audio archs
+(``mamba2-780m``, ``zamba2-7b``, ``paligemma-3b``, ``whisper-large-v3``)
+have no slot-cache engine and serve one reference batch through
+``serve_batch`` (4 x 24 random prompts, 12 tokens each, with random
+patch or frame embeddings: the vision tower and the audio frontend are
+stubs).
 
 ``--page-size`` switches the KV cache to the paged pool with prefix
 reuse; ``--shared-prefix N`` generates the matching system-prompt-heavy
@@ -40,7 +45,7 @@ prefilled once and decoded in lockstep, on the device its params lie on.
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,26 +61,34 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 
 
 def serve_batch(params, cfg: ArchConfig, prompts, gen: int, *,
+                prefix=None, frames=None,
                 device: Optional[DeviceLike] = None) -> torch.Tensor:
     """REFERENCE single-shot path: one fixed-shape batch, every row the
     same prompt length, prefilled once and decoded in lockstep for
     ``gen`` steps. prompts: (B, P) int (array, or tensor on any device)
     -> generated (B, gen) int32, on the device the params lie on
     (``device``, when given, must name it; ``"cuda"`` raises without
-    CUDA)."""
+    CUDA). A VLM takes its patch embeddings ``prefix`` (B, Np, d) and
+    decodes at ``P + n_prefix_tokens + t``; the audio family takes its
+    frame embeddings ``frames`` (B, F, d) (arrays or tensors)."""
     dev = resolve_device(params["embed"].device if device is None
                          else device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params lie on {params['embed'].device}, "
                          f"serve_batch was asked for {dev}")
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    kw = {k: torch.as_tensor(v, device=dev)
+          for k, v in (("prefix", prefix), ("frames", frames))
+          if v is not None}
     P = prompts.shape[1]
+    offset = cfg.n_prefix_tokens if cfg.arch_type == "vlm" else 0
     with torch.inference_mode():
-        logits, cache = tf.prefill(params, cfg, prompts)
+        logits, cache = tf.prefill(params, cfg, prompts, **kw)
         tok = greedy_sample(logits)
         out = [tok]
         for t in range(gen - 1):
-            logits, cache = tf.decode_step(params, cfg, tok, P + t, cache)
+            logits, cache = tf.decode_step(params, cfg, tok, P + offset + t,
+                                           cache)
             tok = greedy_sample(logits)
             out.append(tok)
     return torch.cat(out, dim=1)
@@ -84,23 +97,35 @@ def serve_batch(params, cfg: ArchConfig, prompts, gen: int, *,
 ONESHOT_BATCH, ONESHOT_PROMPT, ONESHOT_GEN = 4, 24, 12
 
 
-def oneshot_prompts(cfg: ArchConfig, seed: int) -> np.ndarray:
-    """``_serve_oneshot``'s prompts: (4, 24) int32 from
-    ``np.random.RandomState(seed + 1)`` (the reference draws them with
-    ``jax.random``, whose numbers no other library reproduces)."""
-    return np.random.RandomState(seed + 1).randint(
-        0, cfg.vocab_size, (ONESHOT_BATCH, ONESHOT_PROMPT)).astype(np.int32)
+def oneshot_inputs(cfg: ArchConfig, seed: int) -> Tuple[np.ndarray, dict]:
+    """``_serve_oneshot``'s inputs, all from one
+    ``np.random.RandomState(seed + 1)``: the prompts, (4, 24) int32, then
+    what the family needs besides, standard normal x 0.02 in float32 —
+    a VLM's ``prefix`` (4, n_prefix_tokens, d), the audio family's
+    ``frames`` (4, encoder_seq, d). The reference draws them with
+    ``jax.random``, whose numbers no other library reproduces."""
+    rs = np.random.RandomState(seed + 1)
+    prompts = rs.randint(0, cfg.vocab_size,
+                         (ONESHOT_BATCH, ONESHOT_PROMPT)).astype(np.int32)
+    extra = {"vlm": ("prefix", cfg.n_prefix_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.arch_type)
+    if extra is None:
+        return prompts, {}
+    name, n = extra
+    x = rs.standard_normal((ONESHOT_BATCH, n, cfg.d_model)) * 0.02
+    return prompts, {name: x.astype(np.float32)}
 
 
 def _serve_oneshot(params, cfg: ArchConfig, args) -> torch.Tensor:
-    """The families without an engine (SSM, hybrid): one reference batch
-    of 4 x 24 random prompts through ``serve_batch``, 12 tokens each;
-    prints the run and returns the tokens (4, 12) on the CPU."""
+    """The families without an engine (SSM, hybrid, VLM, audio): one
+    reference batch of 4 x 24 random prompts (with a VLM's patch or the
+    audio family's frame embeddings) through ``serve_batch``, 12 tokens
+    each; prints the run and returns the tokens (4, 12) on the CPU."""
     import time
 
-    prompts = oneshot_prompts(cfg, args.seed)
+    prompts, kw = oneshot_inputs(cfg, args.seed)
     t0 = time.time()
-    out = serve_batch(params, cfg, prompts, ONESHOT_GEN)
+    out = serve_batch(params, cfg, prompts, ONESHOT_GEN, **kw)
     out = out.cpu()
     dt = time.time() - t0
     print(f"arch={cfg.name} [{cfg.arch_type}] one-shot reference path "
@@ -191,8 +216,8 @@ def main(argv=None):
         params = init_params(cfg, seed=args.seed, device=device)
 
     if cfg.arch_type not in ("dense", "moe"):
-        # ssm / hybrid: no slot-cache engine; serve one reference batch
-        # through serve_batch (vlm / audio raise there: not ported)
+        # ssm / hybrid / vlm / audio: no slot-cache engine; serve one
+        # reference batch through serve_batch
         _serve_oneshot(params, cfg, args)
         return 0
 

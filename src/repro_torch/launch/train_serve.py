@@ -403,9 +403,9 @@ def main(argv=None):
             cfg = cfg.reduced()
     else:
         cfg = tiny_cfg()
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in ("dense", "moe"):
         raise SystemExit(f"train_serve needs an engine-served arch "
-                         f"(dense), not {cfg.arch_type}")
+                         f"(dense/moe), not {cfg.arch_type}")
 
     g_hi = max(2, args.max_seq // 4)
     reqs = generate_requests(

@@ -2,9 +2,9 @@
 serving engine's KV caches.
 
 The PyTorch counterpart of ``repro.models.attention`` (full-sequence
-self-attention, the single-shot prefill / lockstep decode over a
-``kpos``-tagged cache, and the functions the continuous-batching engine
-runs).
+self- and cross-attention, the single-shot prefill / lockstep decode
+over a ``kpos``-tagged cache, the audio decoder's cross K/V, and the
+functions the continuous-batching engine runs).
 Layouts are the JAX package's:
 
   q projections    (d, H, hd)        H = query heads
@@ -134,20 +134,21 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
               rope_theta: float = 10000.0,
               xkv: Optional[torch.Tensor] = None,
               kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention over the whole sequence x (B,S,d) at ``positions``
-    (S,) — causal and/or sliding-window — on plain tensor ops, as the
-    JAX training forward (autograd differentiates it). Cross-attention
-    (``xkv=``) belongs to the audio family, which the port has not yet."""
-    if xkv is not None or kv_positions is not None:
-        raise NotImplementedError(
-            "cross-attention (xkv=) is the audio family's and is not "
-            "ported yet (ROADMAP C7)")
-    q, k, v = _project_qkv(p, x, x)
+    """Attention over the whole sequence x (B,S,d) at ``positions`` (S,)
+    — causal and/or sliding-window — on plain tensor ops, as the JAX
+    training forward (autograd differentiates it). Self-attention, or
+    cross-attention over ``xkv`` (B,T,d) at ``kv_positions`` (T,) (the
+    audio decoder over the encoder's states)."""
+    xkv = x if xkv is None else xkv
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _project_qkv(p, x, xkv)
     if use_rope:
         cos, sin = rope_tables(positions, q.shape[-1], rope_theta)
         q = rotate(q, cos, sin)
+        if kv_positions is not positions:
+            cos, sin = rope_tables(kv_positions, q.shape[-1], rope_theta)
         k = rotate(k, cos, sin)
-    mask = make_mask(positions, positions, causal, window) \
+    mask = make_mask(positions, kv_positions, causal, window) \
         if (causal or window) else None
     return _out_proj(p, grouped_attend(q, k, v, mask))
 
@@ -424,3 +425,24 @@ def attention_prefill_chunk(p: Params, x: torch.Tensor, off: torch.Tensor,
     mask = (t[None, None, :] <= lim[..., None])[:, None, None, :, :]
     o = grouped_attend(q, ck, cv, mask)
     return _out_proj(p, o), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention K/V (the audio decoder): made once per sequence
+# ---------------------------------------------------------------------------
+def cross_kv(p: Params, enc: torch.Tensor) -> Params:
+    """The cross-attention's k/v (B,F,K,hd) over the encoder's states
+    enc (B,F,d): what ``cross_attend`` reads at every decode step."""
+    k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return {"k": k, "v": v}
+
+
+def cross_attend(p: Params, x: torch.Tensor, kv: Params) -> torch.Tensor:
+    """x (B,S,d) attends, unmasked, to every encoder position of ``kv``
+    (from ``cross_kv``)."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    return _out_proj(p, grouped_attend(q, kv["k"], kv["v"], None))

@@ -1,16 +1,23 @@
-"""Decoder LMs of the dense, MoE, SSM and hybrid families: parameters,
-the training forward, the single-shot prefill/decode and the serving
-engine's step functions.
+"""The models of every family (dense, MoE, SSM, hybrid, VLM, audio):
+parameters, the training forward, the single-shot prefill/decode and
+the serving engine's step functions.
 
 The PyTorch counterpart of ``repro.models.transformer``. The parameter
 tree has the JAX package's names and layouts, held in a ``ParamTree``
 module; uniform stacks carry a leading ``L`` axis, and the JAX ``scan``
 over layers is a Python loop:
 
-  dense / moe  {embed, blocks, final_norm[, lm_head]}
-  ssm          {embed, blocks, final_norm[, lm_head]}
-  hybrid       {embed, super: {ssm (Ns, P-1, ..), attn (Ns, ..)},
-                tail (Nt, ..), final_norm[, lm_head]}
+  dense / moe / vlm  {embed, blocks, final_norm[, lm_head]}
+  ssm                {embed, blocks, final_norm[, lm_head]}
+  hybrid             {embed, super: {ssm (Ns, P-1, ..), attn (Ns, ..)},
+                      tail (Nt, ..), final_norm[, lm_head]}
+  audio              {embed, encoder (Le, ..), enc_final_norm,
+                      blocks (decoder: ln1, self_attn, ln2, cross_attn,
+                      ln3, mlp), final_norm[, lm_head]}
+
+The VLM's patch embeddings (``prefix``) and the audio model's frame
+embeddings (``frames``) come precomputed: the vision tower and the
+mel / conv frontend are stubs, as in the JAX package.
 
 Caches are updated in place and returned:
 
@@ -18,11 +25,14 @@ Caches are updated in place and returned:
                     ssm: {h (L, B, nh, hd, N) f32, conv (L, B, W-1, C)}
                     hybrid: {super: {ssm (Ns, P-1, ..), attn (Ns, ..)},
                              tail (Nt, ..)}
+                    audio: {self: attention, cross: {k, v (L, B, F, K,
+                            hd)}} (the encoder's K/V, made once)
   dense slot cache  (L, B, T, K, hd)          one linear row per slot
   paged pool        (L, n_pages, ps, K, hd)   rows read through page maps
 
-The serving engine's ragged, chunked and paged steps need an attention
-cache: dense and MoE only. The VLM and audio families are not ported.
+The serving engine's steps need an attention cache: the ragged decode
+steps take dense, MoE and VLM, the chunked prefill dense and MoE (the
+JAX package's limits; its engine serves dense and MoE only).
 """
 from __future__ import annotations
 
@@ -41,25 +51,41 @@ from repro_torch.models.layers import (Init, ParamTree, apply_norm, as_dtype,
                                        unembed)
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.arch_type in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type={cfg.arch_type!r} is not ported; the "
-            f"port runs the dense, MoE, SSM and hybrid families (ROADMAP "
-            f"C7: the VLM and audio families)")
     if cfg.arch_type not in FAMILIES:
         raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
 
 
-def _check_attention_cache(cfg: ArchConfig) -> None:
-    """The engine's steps keep one KV row per slot: dense and MoE only."""
+def _check_attention_cache(cfg: ArchConfig,
+                           families=("dense", "vlm", "moe")) -> None:
+    """The engine's steps keep one KV row per slot: the ragged decode
+    steps take dense, VLM and MoE, the chunked prefill dense and MoE."""
     _check_family(cfg)
-    if cfg.arch_type not in ("dense", "moe"):
+    if cfg.arch_type not in families:
         raise ValueError(f"{cfg.name}: the serving steps need an attention "
-                         f"cache (dense/moe), not {cfg.arch_type!r}")
+                         f"cache ({'/'.join(families)}), not "
+                         f"{cfg.arch_type!r}")
+
+
+# ---------------------------------------------------------------------------
+# Positions
+# ---------------------------------------------------------------------------
+def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embedding of ``positions`` (...,) ->
+    (..., d) float32: ``sin`` then ``cos`` of ``positions * freqs``,
+    with ``freqs = exp(-arange(d/2) * log(10000) / max(d/2 - 1, 1))``,
+    each step in float32 as the JAX package computes it."""
+    half = d // 2
+    dev = positions.device
+    step = torch.log(torch.tensor(10000.0, dtype=torch.float32, device=dev)) \
+        / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=dev)
+                      * step)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +132,24 @@ def _init_attn_block(init: Init, path: str, cfg: ArchConfig, dtype,
                              cfg.mlp_act, cfg.attn_bias, dtype, lead)}
 
 
+def _init_decoder_xblock(init: Init, path: str, cfg: ArchConfig, dtype,
+                         lead) -> Params:
+    """An encoder-decoder (whisper) decoder block: causal self-attention,
+    cross-attention over the encoder's output, then the MLP."""
+    def attn(name):
+        return attn_mod.init_attention(
+            init, f"{path}/{name}", cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, bias=cfg.attn_bias, dtype=dtype,
+            lead=lead)
+    return {"ln1": _norm(init, cfg, dtype, lead),
+            "self_attn": attn("self_attn"),
+            "ln2": _norm(init, cfg, dtype, lead),
+            "cross_attn": attn("cross_attn"),
+            "ln3": _norm(init, cfg, dtype, lead),
+            "mlp": _init_mlp(init, f"{path}/mlp", cfg.d_model, cfg.d_ff,
+                             cfg.mlp_act, cfg.attn_bias, dtype, lead)}
+
+
 def _init_moe_block(init: Init, path: str, cfg: ArchConfig, dtype,
                     lead) -> Params:
     m = cfg.moe
@@ -143,8 +187,13 @@ def _build(cfg: ArchConfig, init: Init) -> Params:
     if not cfg.tie_embeddings:
         tree["lm_head"] = init.normal("lm_head", vd, 0.02, dtype)
     L = (cfg.n_layers,)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "vlm"):
         tree["blocks"] = _init_attn_block(init, "blocks", cfg, dtype, L)
+    elif cfg.arch_type == "audio":
+        tree["encoder"] = _init_attn_block(init, "encoder", cfg, dtype,
+                                           (cfg.n_encoder_layers,))
+        tree["enc_final_norm"] = _norm(init, cfg, dtype)
+        tree["blocks"] = _init_decoder_xblock(init, "blocks", cfg, dtype, L)
     elif cfg.arch_type == "moe":
         tree["blocks"] = _init_moe_block(init, "blocks", cfg, dtype, L)
     elif cfg.arch_type == "ssm":
@@ -195,8 +244,22 @@ def param_shapes(cfg: ArchConfig) -> Params:
 # Shared pieces of every step
 # ---------------------------------------------------------------------------
 def _embed_in(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return as_dtype(embed(params["embed"], tokens),
-                    dtype_of(cfg.activ_dtype))
+    """The token embeddings in the activation dtype; a VLM's are scaled
+    by ``sqrt(d_model)`` rounded to that dtype (the Gemma convention)."""
+    adt = dtype_of(cfg.activ_dtype)
+    x = as_dtype(embed(params["embed"], tokens), adt)
+    if cfg.arch_type == "vlm":
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=x.device)
+    return x
+
+
+def _with_prefix(x: torch.Tensor, prefix: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """A VLM's patch embeddings (B, Np, d) prepended to the text's."""
+    if prefix is None:
+        return x
+    return torch.cat([as_dtype(torch.as_tensor(prefix, device=x.device),
+                               x.dtype), x], dim=1)
 
 
 def _ffn(bp: Params, h: torch.Tensor, cfg: ArchConfig,
@@ -229,10 +292,10 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # Full forward (training path)
 # ---------------------------------------------------------------------------
 def apply_attn_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
-                     cfg: ArchConfig) -> torch.Tensor:
+                     cfg: ArchConfig, *, causal: bool = True) -> torch.Tensor:
     h = apply_norm(bp["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(
-        bp["attn"], h, positions, causal=True, window=cfg.sliding_window,
+        bp["attn"], h, positions, causal=causal, window=cfg.sliding_window,
         use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
     return _ffn(bp, x, cfg)
 
@@ -262,7 +325,69 @@ def _apply_super(sp: Params, x: torch.Tensor, positions: torch.Tensor,
     return apply_attn_block(sp["attn"], x, positions, cfg)
 
 
+def _frames_in(cfg: ArchConfig, frames: Optional[torch.Tensor],
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's input: the frame embeddings (B, F, d) in the
+    activation dtype plus the sinusoidal embedding of 0..F-1; and those
+    frame positions."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the audio family needs frame "
+                         f"embeddings (frames=)")
+    adt = dtype_of(cfg.activ_dtype)
+    frames = torch.as_tensor(frames, device=device)
+    fpos = torch.arange(frames.shape[1], dtype=torch.int32, device=device)
+    return (as_dtype(frames, adt)
+            + as_dtype(sinusoidal_pos(fpos, cfg.d_model), adt)), fpos
+
+
+def _direct(fn, *args):
+    return fn(*args)
+
+
+def _encode(params, cfg: ArchConfig, frames: Optional[torch.Tensor],
+            device: torch.device, run=_direct) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """The audio encoder: frames plus positions through the non-causal
+    encoder stack (each block called through ``run``), then
+    ``enc_final_norm``. Returns (encoder states (B, F, d), frame
+    positions (F,))."""
+    enc, fpos = _frames_in(cfg, frames, device)
+    for i in range(cfg.n_encoder_layers):
+        enc = run(_encoder_block, layer(params["encoder"], i), enc, fpos,
+                  cfg)
+    return apply_norm(params["enc_final_norm"], enc, cfg.norm_eps), fpos
+
+
+def _encoder_block(bp: Params, x: torch.Tensor, fpos: torch.Tensor,
+                   cfg: ArchConfig) -> torch.Tensor:
+    return apply_attn_block(bp, x, fpos, cfg, causal=False)
+
+
+def _cross_mlp(bp: Params, h: torch.Tensor, cfg: ArchConfig, attend
+               ) -> torch.Tensor:
+    """A decoder block's second and third parts: ``ln2``, the
+    cross-attention ``attend(p, x)``, ``ln3`` and the MLP."""
+    h = h + attend(bp["cross_attn"], apply_norm(bp["ln2"], h, cfg.norm_eps))
+    hh = apply_norm(bp["ln3"], h, cfg.norm_eps)
+    return h + mlp(bp["mlp"], hh, cfg.mlp_act)
+
+
+def _decoder_block(bp: Params, h: torch.Tensor, positions: torch.Tensor,
+                   enc: torch.Tensor, fpos: torch.Tensor,
+                   cfg: ArchConfig) -> torch.Tensor:
+    """A whole-sequence decoder block: causal self-attention without
+    RoPE, cross-attention over ``enc``, MLP."""
+    hh = apply_norm(bp["ln1"], h, cfg.norm_eps)
+    h = h + attn_mod.attention(bp["self_attn"], hh, positions, causal=True,
+                               use_rope=False)
+    return _cross_mlp(bp, h, cfg, lambda p, x: attn_mod.attention(
+        p, x, positions, causal=False, use_rope=False, xkv=enc,
+        kv_positions=fpos))
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            prefix: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> (logits (B,S,V) f32, aux loss: the MoE blocks'
     load-balance losses summed, else 0). Layer ``i`` reads the ``[i]``
@@ -270,9 +395,20 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     the stacked leaf the flat buffer holds. ``remat=True`` recomputes
     each block's (a hybrid's: each super-block's) activations in the
     backward pass (``torch.utils.checkpoint``), as the JAX forward's
-    ``jax.checkpoint`` does."""
+    ``jax.checkpoint`` does.
+
+    A VLM needs ``prefix`` (B, Np, d), the patch embeddings put before
+    the scaled token embeddings; its logits are the text columns' only.
+    The audio family needs ``frames`` (B, F, d): the encoder runs over
+    them, the decoder attends causally to the tokens and fully to the
+    encoder's output."""
     _check_family(cfg)
     x = _embed_in(params, cfg, tokens)
+    if cfg.arch_type == "vlm":
+        if prefix is None:
+            raise ValueError(f"{cfg.name}: the VLM family needs patch "
+                             f"embeddings (prefix=)")
+        x = _with_prefix(x, prefix)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -283,7 +419,13 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
                                                      use_reentrant=False)
         return fn(*args)
 
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type == "audio":
+        enc, fpos = _encode(params, cfg, frames, x.device, run)
+        x = x + as_dtype(sinusoidal_pos(positions, cfg.d_model), x.dtype)
+        for i in range(cfg.n_layers):
+            x = run(_decoder_block, layer(params["blocks"], i), x,
+                    positions, enc, fpos, cfg)
+    elif cfg.arch_type in ("dense", "vlm", "moe"):
         for i in range(cfg.n_layers):
             bp = layer(params["blocks"], i)
             if cfg.arch_type == "moe":
@@ -301,6 +443,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
                     cfg)
         for i in range(nt):
             x = run(apply_ssm_block, layer(params["tail"], i), x, cfg)
+    if cfg.arch_type == "vlm":                       # the text columns
+        x = x[:, -tokens.shape[1]:]
     return _head(params, cfg, x), aux
 
 
@@ -338,8 +482,14 @@ def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int,
         return ssm_mod.init_ssm_state(batch, cfg.d_model, cfg.ssm, adt, dev,
                                       lead)
 
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "vlm", "moe"):
         return {"layers": attn((cfg.n_layers,))}
+    if cfg.arch_type == "audio":
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"self": attn((cfg.n_layers,)),
+                "cross": {n: torch.zeros(shape, dtype=adt, device=dev)
+                          for n in ("k", "v")}}
     if cfg.arch_type == "ssm":
         return {"layers": ssm((cfg.n_layers,))}
     period, ns, nt = _hybrid_split(cfg)
@@ -385,23 +535,34 @@ def _ssm_stack_decode(params: Params, states: Params, x: torch.Tensor,
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
+            prefix: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None,
             lengths: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Params]:
     """Forward over the prompt (B,S), building a decode cache of
-    ``cache_len`` slots (default ``S + 64``) on the tokens' device.
-    Returns (last-token logits (B,1,V), cache). ``lengths`` (B,) makes the
-    batch ragged: row b's prompt is ``tokens[b, :lengths_b]`` and its
-    logits are column ``lengths_b - 1`` — causal masking keeps the padded
-    tail out of every valid position. Ragged prompts need an attention
-    cache (an SSM state would consume the padding); a MoE routes the
-    padded tail too, with capacity from the padded length, so it is
-    exact only while no expert overflows."""
+    ``cache_len`` slots (default: the sequence + 64) on the tokens'
+    device. Returns (last-token logits (B,1,V), cache). ``lengths`` (B,)
+    makes the batch ragged: row b's prompt is ``tokens[b, :lengths_b]``
+    and its logits are column ``lengths_b - 1`` — causal masking keeps
+    the padded tail out of every valid position. Ragged prompts need an
+    attention cache (an SSM state would consume the padding); a MoE
+    routes the padded tail too, with capacity from the padded length, so
+    it is exact only while no expert overflows.
+
+    A VLM puts ``prefix`` (B, Np, d) before the scaled tokens, when
+    given; its ``lengths`` count text tokens, offset by
+    ``n_prefix_tokens``. The audio family runs the encoder over
+    ``frames`` (B, F, d) and keeps each decoder block's cross K/V in
+    ``cache["cross"]``."""
     _check_family(cfg)
-    if lengths is not None and cfg.arch_type not in ("dense", "moe"):
+    if lengths is not None and cfg.arch_type not in ("dense", "vlm", "moe"):
         raise ValueError(f"ragged prefill needs an attention cache, not "
                          f"{cfg.arch_type!r}")
-    B, S = tokens.shape
+    x = _embed_in(params, cfg, tokens)
+    if cfg.arch_type == "vlm":
+        x = _with_prefix(x, prefix)
+    B, S = x.shape[:2]
     w = cfg.sliding_window
     if cache_len is None:
         cache_len = S + 64
@@ -410,7 +571,6 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
                          "unsupported (decode-only shape); prefill chunking "
                          "is a serving-layer feature")
     cache = init_decode_cache(cfg, B, cache_len, device=tokens.device)
-    x = _embed_in(params, cfg, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
     def attn_block(bp, x, cl):
@@ -420,10 +580,24 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
         return _ffn(bp, x + a, cfg)
 
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "vlm", "moe"):
         for i in range(cfg.n_layers):
             x = attn_block(layer(params["blocks"], i), x,
                            _at(cache["layers"], i))
+    elif cfg.arch_type == "audio":
+        enc, _ = _encode(params, cfg, frames, x.device)
+        x = x + as_dtype(sinusoidal_pos(positions, cfg.d_model), x.dtype)
+        for i in range(cfg.n_layers):
+            bp = layer(params["blocks"], i)
+            hh = apply_norm(bp["ln1"], x, cfg.norm_eps)
+            x = x + attn_mod.attention_prefill(
+                bp["self_attn"], hh, positions, cache=_at(cache["self"], i),
+                window=w, use_rope=False)[0]
+            # the cross K/V once: what attention(xkv=enc) computes, kept
+            kv = attn_mod.cross_kv(bp["cross_attn"], enc)
+            _put(_at(cache["cross"], i), kv)
+            x = _cross_mlp(bp, x, cfg, lambda p, h: attn_mod.cross_attend(
+                p, h, kv))
     elif cfg.arch_type == "ssm":
         x = _ssm_stack_prefill(params["blocks"], cache["layers"], x, cfg,
                                cfg.n_layers)
@@ -436,7 +610,11 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             x = attn_block(sp["attn"], x, _at(cache["super"]["attn"], s))
         if nt:
             x = _ssm_stack_prefill(params["tail"], cache["tail"], x, cfg, nt)
-    x = x[:, -1:, :] if lengths is None else _take_cols(x, lengths)
+    if lengths is None:
+        x = x[:, -1:, :]
+    else:
+        off = cfg.n_prefix_tokens if cfg.arch_type == "vlm" else 0
+        x = _take_cols(x, torch.as_tensor(lengths, device=x.device) + off)
     return _head(params, cfg, x), cache
 
 
@@ -444,8 +622,10 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
                 pos: Union[int, torch.Tensor], cache: Params
                 ) -> Tuple[torch.Tensor, Params]:
     """ONE-token lockstep decode: token (B,1), ``pos`` the one absolute
-    position of every row (an int or 0-d tensor). Writes the cache in
-    place. Returns (logits (B,1,V), cache)."""
+    position of every row (an int or 0-d tensor; a VLM's counts its
+    prefix). Writes the cache in place. Returns (logits (B,1,V),
+    cache). The audio family attends to the encoder through the cross
+    K/V that ``prefill`` left in ``cache["cross"]``."""
     _check_family(cfg)
     x = _embed_in(params, cfg, token)
     pos = torch.as_tensor(pos, device=x.device)
@@ -457,10 +637,22 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
             use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
         return _ffn(bp, x + a, cfg)
 
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "vlm", "moe"):
         for i in range(cfg.n_layers):
             x = attn_block(layer(params["blocks"], i), x,
                            _at(cache["layers"], i))
+    elif cfg.arch_type == "audio":
+        x = x + as_dtype(sinusoidal_pos(pos.reshape(1), cfg.d_model),
+                         x.dtype)
+        for i in range(cfg.n_layers):
+            bp = layer(params["blocks"], i)
+            hh = apply_norm(bp["ln1"], x, cfg.norm_eps)
+            x = x + attn_mod.attention_decode(
+                bp["self_attn"], hh, pos, cache=_at(cache["self"], i),
+                window=cfg.sliding_window, use_rope=False)[0]
+            kv = _at(cache["cross"], i)
+            x = _cross_mlp(bp, x, cfg, lambda p, h: attn_mod.cross_attend(
+                p, h, kv))
     elif cfg.arch_type == "ssm":
         x = _ssm_stack_decode(params["blocks"], cache["layers"], x, cfg,
                               cfg.n_layers)
@@ -513,8 +705,8 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor,
     each row's last VALID column (B,1,V), cache). ``all_logits=True``
     returns the WHOLE chunk's logits (B,C,V) instead — the speculative
     verify shape, whose column ``clen-1`` equals the default path's bit
-    for bit."""
-    _check_attention_cache(cfg)
+    for bit. Dense and MoE only, as the JAX package's."""
+    _check_attention_cache(cfg, ("dense", "moe"))
     x = _embed_in(params, cfg, tokens)
     for i in range(cfg.n_layers):
         bp = layer(params["blocks"], i)

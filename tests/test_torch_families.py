@@ -10,7 +10,6 @@ decode within 2e-3 of the port's own forward (the JAX package's
 consistency bound); ``serve_batch`` tokens equal; the serve launcher's
 single-shot path and ``--closure`` for these families.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -27,7 +26,7 @@ from repro.models import transformer as j_tf  # noqa: E402
 from repro_torch.checkpoint.convert import (params_from_jax,  # noqa: E402
                                             params_to_numpy)
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
-from repro_torch.launch.serve import (oneshot_prompts,  # noqa: E402
+from repro_torch.launch.serve import (oneshot_inputs,  # noqa: E402
                                       serve_batch)
 from repro_torch.models import transformer as t_tf  # noqa: E402
 
@@ -130,7 +129,7 @@ def test_prefill_and_decode(fam):
 
 def test_serve_batch_tokens_equal(fam):
     cfg, tcfg, jp, tp, _ = fam
-    prompts = oneshot_prompts(tcfg, seed=0)
+    prompts = oneshot_inputs(tcfg, seed=0)[0]
     want = np.asarray(j_serve_batch(jp, cfg, jnp.asarray(prompts), 12))
     got = serve_batch(tp, tcfg, prompts, 12)
     assert got.dtype == torch.int32 and got.shape == (4, 12)
@@ -171,7 +170,7 @@ def test_launcher_on_cpu(name, capsys):
     assert f"arch={tcfg.name} [{tcfg.arch_type}] one-shot" in out
     assert "generated (4, 12)" in out
     tp = t_tf.init_params(tcfg, seed=0, device="cpu")
-    first = serve_batch(tp, tcfg, oneshot_prompts(tcfg, seed=0), 12)[0]
+    first = serve_batch(tp, tcfg, oneshot_inputs(tcfg, seed=0)[0], 12)[0]
     assert f"sample: {first.numpy()}" in out
 
 
@@ -189,15 +188,5 @@ def test_launcher_serves_a_closure(tmp_path, capsys):
     assert serve.main(["--closure", path, "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     want = np.asarray(j_serve_batch(
-        jp, cfg, jnp.asarray(oneshot_prompts(tcfg, seed=0)), 12))
+        jp, cfg, jnp.asarray(oneshot_inputs(tcfg, seed=0)[0]), 12))
     assert f"sample: {want[0]}" in out
-
-
-@pytest.mark.parametrize("arch_type", ["vlm", "audio"])
-def test_vlm_and_audio_still_raise(fam, arch_type):
-    _, tcfg, _, tp, toks = fam
-    cfg = dataclasses.replace(tcfg, arch_type=arch_type)
-    for fn in (lambda: t_tf.forward(tp, cfg, torch.tensor(toks)),
-               lambda: serve_batch(tp, cfg, toks[:, :4], 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP C7"):
-            fn()

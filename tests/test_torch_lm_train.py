@@ -12,7 +12,6 @@ attention outputs 1e-5 relative; the simulated run's events, worker
 counts, vectors and wire bytes equal (they follow the seeded simulator
 and the selection), its loss within 1e-3 relative.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -123,17 +122,6 @@ def test_make_mask_and_full_sequence_attention(causal, window):
     got = t_attn.attention(ta, torch.tensor(x), torch.tensor(pos),
                            causal=causal, window=window)
     assert _rel(got.numpy(), want) <= 1e-5
-
-
-def test_unported_forward_paths_raise(lm):
-    _, tcfg, _, tp = lm
-    x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP C7"):
-        t_attn.attention(t_layers.layer(tp["blocks"], 0)["attn"], x,
-                         torch.arange(4), xkv=x)
-    with pytest.raises(NotImplementedError, match="ROADMAP C7"):
-        t_tf.forward(tp, dataclasses.replace(tcfg, arch_type="vlm"),
-                     torch.zeros(1, 4, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -229,9 +229,10 @@ def test_serve_batch_device_rule(model):
         pytest.skip("a CUDA device is present; the cuda request is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_batch(tp, tcfg, prompts, 2, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP C7"):
-        serve_batch(tp, dataclasses.replace(tcfg, arch_type="audio"),
-                    prompts, 2)
+    acfg = t_get_config("whisper-large-v3").reduced()
+    frames = np.zeros((1, acfg.encoder_seq, acfg.d_model), np.float32)
+    assert serve_batch(t_tf.init_params(acfg, device="cpu"), acfg, prompts,
+                       2, frames=frames, device="cpu").shape == (1, 2)
 
 
 def test_cache_allocators_default_to_cuda(model):
