@@ -184,6 +184,24 @@ result):
    the caches within 2e-5, the first layer's cache bit for bit;
    flash_decode launched once per layer per step (counters reset just
    before, read just after);
+9l. mesh-train (slice 12) — ``python -m repro_torch.launch.train``
+   without ``--simulate`` (``examples/train_e2e.py``'s ``100m`` preset):
+   ``main`` in this process trains ``mlitb-lm-100m`` at full width
+   through ``ElasticMeshSGD`` (300 steps of 8 x 256, 4 virtual workers,
+   worker 1 leaving at step 100 and rejoining at 200, AdaGrad lr 0.003,
+   the counters reset just before and read just after: no kernel
+   launched): every loss finite, tokens exactly 2048 / 1536 at 4 / 3 live
+   workers, the last 20 steps' mean loss below the first 20's; the
+   research closure it writes reloads to the trained params bit for bit
+   and ``serve_batch`` (8 x 32 prompts, 16 tokens) serves the same tokens
+   from both; ms per step (CUDA events and the host clock ending in the
+   metrics' host copy), tokens/s, peak memory; the reference's default
+   lr (AdaGrad 0.05) for 20 steps, printed, not gated; remat against
+   none, 10 steps each (ms, peak, losses within 1e-4); then at
+   ``.reduced()`` card against CPU with sgd: the engine under leave /
+   join (masks, tokens and live counts equal, losses and params within
+   1e-4 relative) and 2 ``build_train_step`` steps for one config per
+   family (losses within 1e-4 relative, aux and params within 1e-4);
 10. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
@@ -239,6 +257,7 @@ from repro_torch.core import (AdaptiveFracController,  # noqa: E402
                               GuardrailConfig, HierarchyConfig, JoinEvent,
                               MasterEventLoop, MasterReducer, TrainingConfig,
                               UploadDataEvent, flat_spec)
+from repro_torch.core.closure import ResearchClosure, torchify  # noqa: E402
 from repro_torch.core.compression import (randk_indices,  # noqa: E402
                                           randk_scores)
 from repro_torch.core.flatbuf import tree_leaves, tree_map  # noqa: E402
@@ -257,7 +276,9 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
     block_topk_flat_ref, fused_block_topk_batched_ref)
+from repro_torch.core.mesh_engine import ElasticMeshSGD  # noqa: E402
 from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
+import repro_torch.launch.train as train_mod  # noqa: E402
 from repro_torch.launch.train import run_hierarchy, run_lm  # noqa: E402
 from repro_torch.launch.train_serve import (build_training,  # noqa: E402
                                             run_train_serve)
@@ -265,6 +286,8 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 import repro_torch.launch.serve as serve_mod  # noqa: E402
 import repro_torch.optim as optim  # noqa: E402
+from repro_torch.train.step import (build_train_step,  # noqa: E402
+                                    make_train_state)
 from repro_torch.optim import adagrad, sgd  # noqa: E402
 from repro_torch.models.attention import _pow2_kv_block  # noqa: E402
 from repro_torch.serving import (PagingConfig, ServeRequest,  # noqa: E402
@@ -3179,6 +3202,267 @@ def phase_c7_small(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 12: the elastic mesh engine trains the LM (launch.train's mesh path)
+# ---------------------------------------------------------------------------
+# examples/train_e2e.py's 100m preset, churned; AdaGrad at 0.003 (the
+# default 0.05 oscillates at full width and is run ungated)
+MESH_STEPS, MESH_BATCH, MESH_SEQ, MESH_WORKERS = 300, 8, 256, 4
+MESH_CHURN = "100:leave:1,200:join:1"
+MESH_LIVE = [4] * 100 + [3] * 100 + [4] * 100
+MESH_TOL = 1e-4                 # card against CPU at reduced width
+MESH_FAMILIES = ("qwen3-4b", "llama4-scout-17b-a16e", "mamba2-780m",
+                 "zamba2-7b", "paligemma-3b", "whisper-large-v3")
+
+
+@contextlib.contextmanager
+def captured_mesh_runs(runs: list):
+    """``launch.train.run_mesh`` wrapped so that ``main`` hands its
+    ``MeshRun`` (engine, losses, timings) to ``runs`` as well."""
+    orig = train_mod.run_mesh
+
+    def run_mesh(*a, **kw):
+        runs.append(orig(*a, **kw))
+        return runs[-1]
+
+    train_mod.run_mesh = run_mesh
+    try:
+        yield
+    finally:
+        train_mod.run_mesh = orig
+
+
+def spread(xs) -> str:
+    xs = sorted(xs)
+    return f"median {xs[len(xs) // 2]:.2f} (range {xs[0]:.2f}-{xs[-1]:.2f})"
+
+
+def reduced_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """tokens / labels / mask from one RandomState, plus a VLM's prefix
+    or the audio family's frames (numpy)."""
+    rs = np.random.RandomState(seed)
+    out = {"tokens": rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32),
+           "labels": rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32),
+           "mask": np.ones((B, S), np.float32)}
+    out["mask"][-1, S // 2:] = 0.0
+    extra = {"vlm": ("prefix", cfg.n_prefix_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.arch_type)
+    if extra:
+        name, n = extra
+        out[name] = (rs.standard_normal((B, n, cfg.d_model)) * 0.02
+                     ).astype(np.float32)
+    return out
+
+
+def leaf_errs(a, b) -> tuple:
+    """(largest |a - b| over the leaves, largest per-leaf ||a - b|| /
+    ||b||) between two param trees."""
+    abs_err = rel = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.detach().double().cpu(), y.detach().double().cpu()
+        abs_err = max(abs_err, float((x - y).abs().max()))
+        rel = max(rel, float((x - y).norm() / y.norm().clamp_min(1e-30)))
+    return abs_err, rel
+
+
+def mesh_small(device: str) -> dict:
+    """The reduced qwen3 through ``ElasticMeshSGD`` (B 8, S 16, 4
+    workers, sgd 0.1): 4 steps, leave(2), a step, join(2), a step."""
+    cfg = get_config("qwen3-4b").reduced()
+    opt = sgd(lr=0.1)
+    eng = ElasticMeshSGD(
+        train_step=build_train_step(cfg, opt, remat=False),
+        state=make_train_state(tf.init_params(cfg, seed=0, device=device),
+                               opt), n_workers=4, global_batch=8)
+    batch = reduced_batch(cfg, 8, 16, seed=1)
+    del batch["mask"]
+    masks = []
+    for i in range(6):
+        if i == 4:
+            eng.leave(2)
+        if i == 5:
+            eng.join(2)
+        masks.append(eng.work_mask(16).cpu())
+        eng.step(batch)
+    return {"history": eng.history, "masks": masks,
+            "params": eng.state["params"]}
+
+
+def family_steps(name: str, device: str) -> tuple:
+    """Two sgd steps of ``build_train_step`` (aux weight 0.01) on the
+    reduced ``name``: (metrics as floats, params)."""
+    cfg = get_config(name).reduced()
+    opt = sgd(lr=0.1)
+    step = build_train_step(cfg, opt, remat=False)
+    st = make_train_state(tf.init_params(cfg, seed=0, device=device), opt)
+    ms = []
+    for i in range(2):
+        b = {k: torch.as_tensor(v, device=device)
+             for k, v in reduced_batch(cfg, 2, 8, seed=20 + i).items()}
+        st, m = step(st, b)
+        ms.append({k: float(v) for k, v in m.items()})
+    return ms, st["params"]
+
+
+def phase_mesh_train(card: str) -> dict:
+    """``launch.train`` without ``--simulate`` at full width: the gated
+    300-step churned run, its closure reloaded and served, the default lr
+    for 20 steps (printed), remat against none, then card against CPU at
+    reduced width."""
+    # the closure is ~0.54 GB of base64: too large for chiprun_out/
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    path = str(build / "mesh_train_closure.json")
+    runs = []
+    free_card()
+    runtime.reset_counters()
+    t0 = time.perf_counter()
+    with captured_mesh_runs(runs):
+        rc = train_mod.main([
+            "--arch", ARCH, "--steps", str(MESH_STEPS), "--batch",
+            str(MESH_BATCH), "--seq", str(MESH_SEQ), "--n-workers",
+            str(MESH_WORKERS), "--lr", "0.003", "--churn", MESH_CHURN,
+            "--log-every", "50", "--closure-out", path])
+    main_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in runtime.COUNTERS.items()}
+    run = runs[-1]
+    hist = run.engine.history
+    losses = np.array([h["loss"] for h in hist])
+    live = [h["n_live"] for h in hist]
+    tokens = [h["tokens"] for h in hist]
+    want_tokens = [MESH_BATCH * MESH_SEQ * n // MESH_WORKERS
+                   for n in MESH_LIVE]
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    if rc != 0 or len(hist) != MESH_STEPS:
+        raise AssertionError(f"[mesh-train] main returned {rc} after "
+                             f"{len(hist)} steps")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[mesh-train] non-finite loss at steps "
+                             f"{np.flatnonzero(~np.isfinite(losses))[:10]}")
+    if live != MESH_LIVE or tokens != want_tokens:
+        bad = [i for i in range(MESH_STEPS)
+               if (live[i], tokens[i]) != (MESH_LIVE[i], want_tokens[i])]
+        raise AssertionError(f"[mesh-train] live / tokens off at steps "
+                             f"{bad[:10]}: {[(live[i], tokens[i]) for i in bad[:10]]}")
+    if not last < first:
+        raise AssertionError(f"[mesh-train] loss did not fall: first 20 "
+                             f"mean {first}, last 20 {last}")
+    if any(launches.values()):
+        raise AssertionError(f"[mesh-train] the training path launched "
+                             f"kernels: {launches}")
+    # the closure, reloaded, serves what the in-memory params serve
+    clo = ResearchClosure.load(path)
+    Path(path).unlink()
+    params = torchify(clo.params, "cuda")
+    held = run.engine.state["params"]
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(held))):
+        raise AssertionError("[mesh-train] the reloaded closure's params "
+                             "differ from the trained ones")
+    prompts = np.random.RandomState(5).randint(
+        0, clo.config.vocab_size, (8, 32)).astype(np.int32)
+    served = serve_mod.serve_batch(params, clo.config, prompts, 16)
+    want = serve_mod.serve_batch(held, get_config(ARCH), prompts, 16)
+    if not torch.equal(served, want):
+        raise AssertionError("[mesh-train] the reloaded closure serves "
+                             "other tokens than the in-memory params")
+    print(f"[mesh-train] {ARCH} full width, {MESH_STEPS} steps of "
+          f"{MESH_BATCH} x {MESH_SEQ}, {MESH_WORKERS} workers churned "
+          f"{MESH_CHURN!r}, AdaGrad lr 0.003: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first 20 mean {first:.4f}, last 20 "
+          f"{last:.4f}), tokens {want_tokens[0]} / {min(want_tokens)} at "
+          f"4 / 3 live, kernel launches "
+          f"{launches}; closure reloaded serves 8 x 32 -> 16 tokens equal "
+          f"to the trained params | {card}")
+    tok_s = 1e3 * sum(tokens) / sum(run.host_ms)
+    steady = 1e3 * tokens[0] / sorted(run.host_ms)[len(run.host_ms) // 2]
+    print(f"[mesh-train] ms per step: {spread(run.step_ms)} CUDA events, "
+          f"{spread(run.host_ms)} host (ending in the metrics' host copy; "
+          f"the first step warms up); {tok_s:.0f} tokens/s over the run, "
+          f"{steady:.0f} at the median step of 4 workers; peak memory "
+          f"{run.peak_mem_bytes / 2**30:.2f} GiB; main {main_s:.1f} s "
+          f"| {card}")
+    res = {"losses": losses.tolist(), "step_ms": run.step_ms,
+           "host_ms": run.host_ms, "peak_mem_bytes": run.peak_mem_bytes,
+           "tokens_per_s": tok_s, "tokens_per_s_median_step": steady,
+           "first20": first, "last20": last, "launches": launches,
+           "main_s": main_s}
+    del run, runs, params, held, clo
+    free_card()
+    # the reference's default (AdaGrad 0.05) for 20 steps: printed only
+    runs = []
+    with captured_mesh_runs(runs):
+        train_mod.main(["--arch", ARCH, "--steps", "20", "--batch",
+                        str(MESH_BATCH), "--seq", str(MESH_SEQ),
+                        "--log-every", "20"])
+    res["default_lr_losses"] = runs[-1].losses
+    print(f"[mesh-train] default lr 0.05, 20 steps (not gated): "
+          + " ".join(f"{x:.3f}" for x in runs[-1].losses) + f" | {card}")
+    del runs
+    free_card()
+    # remat against none at full width, 10 steps each
+    for remat in (False, True):
+        r = train_mod.run_mesh(get_config(ARCH), steps=10, batch=MESH_BATCH,
+                               seq=MESH_SEQ, lr=0.003, remat=remat,
+                               log_every=100)
+        res[f"remat_{remat}"] = {"step_ms": r.step_ms, "host_ms": r.host_ms,
+                                 "peak_mem_bytes": r.peak_mem_bytes,
+                                 "losses": r.losses}
+        print(f"[mesh-train] remat={remat}: ms per step "
+              f"{spread(r.step_ms)} CUDA events, {spread(r.host_ms)} host; "
+              f"peak memory {r.peak_mem_bytes / 2**30:.2f} GiB | {card}")
+        del r
+        free_card()
+    a, b = (res[f"remat_{x}"]["losses"] for x in (False, True))
+    remat_rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    if not remat_rel <= MESH_TOL:
+        raise AssertionError(f"[mesh-train] remat changed the losses: "
+                             f"{remat_rel} relative")
+    res["remat_loss_rel"] = remat_rel
+    # card against CPU at reduced width, sgd
+    g, c = mesh_small("cuda"), mesh_small("cpu")
+    for i, (mg, mc) in enumerate(zip(g["masks"], c["masks"])):
+        if not torch.equal(mg, mc):
+            raise AssertionError(f"[mesh-train] engine mask {i}: card != CPU")
+    if [(h["tokens"], h["n_live"]) for h in g["history"]] != \
+            [(h["tokens"], h["n_live"]) for h in c["history"]]:
+        raise AssertionError("[mesh-train] engine tokens / live: card != CPU")
+    loss_rel = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                   for x, y in zip(g["history"], c["history"]))
+    p_abs, p_rel = leaf_errs(g["params"], c["params"])
+    if not (loss_rel <= MESH_TOL and p_rel <= MESH_TOL):
+        raise AssertionError(f"[mesh-train] engine card vs CPU: loss "
+                             f"{loss_rel}, params {p_rel} relative (bound "
+                             f"{MESH_TOL})")
+    res["engine_small"] = {"loss_rel": loss_rel, "param_rel": p_rel,
+                           "param_abs": p_abs}
+    print(f"[mesh-train] qwen3-4b.reduced() engine (4 steps, leave, join), "
+          f"sgd: masks, tokens, live card = CPU; loss {loss_rel:.2e}, params "
+          f"{p_rel:.2e} relative (bound {MESH_TOL:g}) | {card}")
+    fam = {}
+    for name in MESH_FAMILIES:
+        (mg, pg), (mc, pc) = family_steps(name, "cuda"), \
+            family_steps(name, "cpu")
+        l_rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                    for x, y in zip(mg, mc) for k in ("loss", "total_loss"))
+        a_abs = max(abs(x["aux_loss"] - y["aux_loss"]) for x, y in zip(mg, mc))
+        tok_eq = [x["tokens"] for x in mg] == [y["tokens"] for y in mc]
+        p_abs, p_rel = leaf_errs(pg, pc)
+        if not (tok_eq and l_rel <= MESH_TOL and a_abs <= MESH_TOL
+                and p_abs <= MESH_TOL):
+            raise AssertionError(
+                f"[mesh-train] {name} train step card vs CPU: tokens equal "
+                f"{tok_eq}, loss {l_rel} rel, aux {a_abs}, params {p_abs} "
+                f"(bound {MESH_TOL})")
+        fam[name] = {"loss_rel": l_rel, "aux_abs": a_abs, "param_abs": p_abs}
+    res["families"] = fam
+    print(f"[mesh-train] build_train_step card = CPU, 2 sgd steps per "
+          f"family (.reduced(), f32): " + ", ".join(
+              f"{k} loss {v['loss_rel']:.1e} params {v['param_abs']:.1e}"
+              for k, v in fam.items()) + f" (bound {MESH_TOL:g}) | {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # slice 3: the public kernel API at full width
 # ---------------------------------------------------------------------------
 # flash_attention: mlitb-lm-100m's prefill over the served engine's 16
@@ -3723,6 +4007,9 @@ def main() -> int:
         t11 = time.perf_counter()
         slice11[name] = fn(card)
         slice11[name]["seconds"] = time.perf_counter() - t11
+    t12 = time.perf_counter()
+    mesh = phase_mesh_train(card)
+    mesh["seconds"] = time.perf_counter() - t12
     moe_t = slice10["moe"]["timing"]
     main_api = phase_api(card)
     fa = phase_flash_attention(card, main_api)
@@ -3817,7 +4104,7 @@ def main() -> int:
          "oneshot": oneshot, "train": train,
          "reduce_lm": lm, "train_lm": train_lm, "train_serve": ts,
          "train_serve_small": ts_small, "slice9": slice9,
-         "slice10": slice10, "slice11": slice11,
+         "slice10": slice10, "slice11": slice11, "mesh_train": mesh,
          "api_launches": launches,
          "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
@@ -3836,7 +4123,7 @@ def main() -> int:
           + f"); slice 11's "
           f"{sum(v['seconds'] for v in slice11.values()):.1f} s ("
           + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice11.items())
-          + ")")
+          + f"); slice 12's mesh-train {mesh['seconds']:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

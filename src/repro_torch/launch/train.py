@@ -1,6 +1,30 @@
-"""Training launcher: the paper's elastic, deadline-bounded event loop
-trains a dense LM through the simulated browser fleet on the card (port
-of ``repro.launch.train``'s ``--simulate`` path).
+"""Training launcher: elastic distributed SGD on synthetic LM data, on
+the card (port of ``repro.launch.train``).
+
+Without ``--simulate`` it runs the production path end to end: config ->
+model -> train step -> ``ElasticMeshSGD`` (the paper's event semantics:
+``--n-workers`` virtual workers, row slices of the batch, leaving and
+joining per ``--churn``) -> research-closure checkpoint:
+
+  # ~100M model, a few hundred steps (examples/train_e2e.py's 100m
+  # preset; at full width AdaGrad's default lr 0.05 oscillates, 0.003
+  # trains)
+  python -m repro_torch.launch.train --arch mlitb-lm-100m \\
+      --steps 300 --batch 8 --seq 256 --closure-out model.json --lr 0.003
+
+  # any assigned arch, reduced variant, with worker churn, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --steps 20 --churn 10:leave:1,15:join:1 --device cpu
+
+It prints each churn event, a step line every ``--log-every`` steps and
+the final loss in the reference's format (``device=`` names the card
+where the reference counts devices); on the card also the ms per step
+(CUDA events, and the host clock ending in the metrics' host copy), the
+tokens/s and the peak memory. ``--lr`` defaults per optimizer: AdaGrad
+0.05, Adam 3e-4, SGD 0.1.
+
+With ``--simulate`` it drives the discrete-event simulated browser fleet
+instead (``build_training``):
 
   python -m repro_torch.launch.train --arch mlitb-lm-100m --simulate \\
       --steps 10 --lr 0.003
@@ -28,22 +52,142 @@ outer steps. It prints the loss, the WAN bytes and their share of all
 gradient traffic and the communication ratio, then, on the card, the
 host ms per inner iteration, the ms per outer exchange (CUDA events
 around compress + gossip + correction) and the peak memory.
-
-Not ported yet: the mesh engine behind a run without ``--simulate``
-(ROADMAP A10); it raises.
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.closure import ResearchClosure
 from repro_torch.core.event_loop import IterationLog, MasterEventLoop
 from repro_torch.core.hierarchy import HierarchicalMaster, OuterLog
+from repro_torch.core.mesh_engine import ElasticMeshSGD
+from repro_torch.data.datasets import synthetic_lm
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
+from repro_torch.models.transformer import init_params
+from repro_torch.optim import get_optimizer
+from repro_torch.train.step import build_train_step, make_train_state
+
+# --lr's default on the mesh path, per optimizer (the reference's)
+MESH_LR = {"adagrad": 0.05, "adam": 3e-4, "sgd": 0.1}
+# --lr's default with --simulate (build_training's)
+SIMULATE_LR = 0.1
+
+
+def data_stream(vocab: int, batch: int, seq: int, seed: int = 0,
+                device: DeviceLike = "cuda"
+                ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless (batch, seq) next-token batches of the reference's stream:
+    ``synthetic_lm(2_000_000, min(vocab, 65_536))`` and one
+    ``RandomState(seed)`` drawing the window starts, so the same numbers
+    as ``repro``'s; ``tokens`` / ``labels`` are int32 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    toks = synthetic_lm(2_000_000, vocab=min(vocab, 65_536), seed=seed)
+    rng = np.random.RandomState(seed)
+
+    def stream():
+        while True:
+            starts = rng.randint(0, len(toks) - seq - 1, size=batch)
+            x = np.stack([toks[s:s + seq] for s in starts])
+            y = np.stack([toks[s + 1:s + seq + 1] for s in starts])
+            yield {"tokens": torch.from_numpy(x).to(dev),
+                   "labels": torch.from_numpy(y).to(dev)}
+    return stream()
+
+
+def parse_churn(spec: str) -> Dict[int, List[Tuple[str, int]]]:
+    """'10:leave:1,15:join:1' -> {step: [(kind, worker_idx)]}"""
+    out: Dict[int, List[Tuple[str, int]]] = {}
+    if not spec:
+        return out
+    for item in spec.split(","):
+        step, kind, idx = item.split(":")
+        out.setdefault(int(step), []).append((kind, int(idx)))
+    return out
+
+
+@dataclass
+class MeshRun:
+    engine: ElasticMeshSGD
+    losses: List[float]
+    step_ms: List[float]         # CUDA-event ms per step (card only)
+    host_ms: List[float]         # host ms per step, ending in the
+                                 # metrics' host copy
+    peak_mem_bytes: int          # peak device memory (card; else 0)
+
+
+def run_mesh(cfg, *, steps: int, lr: float, batch: int = 8, seq: int = 128,
+             optimizer: str = "adagrad", n_workers: int = 4, churn: str = "", seed: int = 0,
+             remat: bool = False, log_every: int = 10,
+             device: DeviceLike = "cuda") -> MeshRun:
+    """``steps`` steps of ``ElasticMeshSGD`` over ``build_train_step(cfg)``
+    on ``device`` (random weights from ``seed``, ``data_stream``'s
+    batches), applying ``churn`` (``parse_churn``'s spec) before the
+    steps it names; prints the churn events and every ``log_every``-th
+    step as the reference's launcher does. Each step is timed on the
+    host and, on the card, with CUDA events."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    opt = get_optimizer(optimizer, lr=lr)
+    state = make_train_state(init_params(cfg, seed=seed, device=dev), opt)
+    eng = ElasticMeshSGD(train_step=build_train_step(cfg, opt, remat=remat),
+                         state=state, n_workers=n_workers,
+                         global_batch=batch)
+    events = parse_churn(churn)
+    stream = data_stream(cfg.vocab_size, batch, seq, seed, device=dev)
+    t0 = time.time()
+    losses, host_ms, cuda_ev = [], [], []
+    for i in range(steps):
+        for kind, idx in events.get(i, []):
+            getattr(eng, kind)(idx)
+            print(f"step {i}: worker {idx} {kind}s "
+                  f"({eng.n_live}/{eng.n_workers} live)")
+        b = next(stream)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) if cuda else None
+        t = time.perf_counter()
+        if ev:
+            ev[0].record()
+        metrics = eng.step(b)
+        if ev:
+            ev[1].record()
+            cuda_ev.append(ev)
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(metrics["loss"])
+        if i % log_every == 0 or i == steps - 1:
+            tok_s = metrics["tokens"] * (i + 1) / max(time.time() - t0, 1e-9)
+            print(f"step {i:5d} loss {metrics['loss']:.4f} "
+                  f"tokens {int(metrics['tokens'])} live {eng.n_live} "
+                  f"({tok_s:.0f} tok/s)")
+    if cuda:
+        torch.cuda.synchronize(dev)
+    return MeshRun(engine=eng, losses=losses,
+                   step_ms=[s.elapsed_time(e) for s, e in cuda_ev],
+                   host_ms=host_ms,
+                   peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
+                                   if cuda else 0))
+
+
+def print_mesh_timing(run: MeshRun, device: torch.device) -> None:
+    """The card's line: ms per step (CUDA events, and the host clock
+    ending in the metrics' host copy), median and range; tokens/s over
+    the steps' host time; peak memory."""
+    ev, host = sorted(run.step_ms), sorted(run.host_ms)
+    tokens = sum(h["tokens"] for h in run.engine.history)
+    print(f"device={torch.cuda.get_device_name(device)} ms per step: "
+          f"median {ev[len(ev) // 2]:.2f} (range {ev[0]:.2f}-{ev[-1]:.2f}) "
+          f"CUDA events, median {host[len(host) // 2]:.2f} (range "
+          f"{host[0]:.2f}-{host[-1]:.2f}) host; "
+          f"{1e3 * tokens / sum(run.host_ms):.0f} tokens/s; peak memory "
+          f"{run.peak_mem_bytes / 2**30:.2f} GiB")
 
 
 @dataclass
@@ -164,7 +308,8 @@ def run_hierarchy(cfg, *, outer_steps: int, hierarchy, T: float = 0.5,
 
 
 def run_simulated(cfg, *, steps: int, regions: int, T: float, seed: int,
-                  lr: float = 0.1, device: DeviceLike = "cuda") -> int:
+                  lr: float = SIMULATE_LR, device: DeviceLike = "cuda"
+                  ) -> int:
     """The discrete-event path behind ``--simulate``: flat
     (``regions=1``) or two-tier."""
     dev = resolve_device(device)
@@ -218,31 +363,65 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--arch", default="mlitb-lm-100m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--optimizer", default="adagrad",
+                    choices=["adagrad", "adam", "sgd"])
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: 0.05 / 3e-4 / 0.1 for adagrad / adam / "
+                         "sgd; with --simulate 0.1 (AdaGrad)")
+    ap.add_argument("--n-workers", type=int, default=4,
+                    help="virtual workers (data slices)")
+    ap.add_argument("--churn", default="",
+                    help="step:leave|join:worker_idx,...")
+    ap.add_argument("--closure-out", default=None)
+    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--simulate", action="store_true",
                     help="drive the discrete-event simulated fleet "
-                         "(build_training); required: the mesh engine is "
-                         "not ported")
+                         "(build_training) instead of the mesh engine")
     ap.add_argument("--regions", type=int, default=1,
                     help="with --simulate: >1 builds the two-tier "
                          "hierarchy")
     ap.add_argument("--T", type=float, default=0.5,
                     help="with --simulate: iteration budget (s)")
-    ap.add_argument("--lr", type=float, default=0.1,
-                    help="with --simulate: AdaGrad's learning rate")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    if not args.simulate:
-        raise NotImplementedError(
-            "training without --simulate runs the multi-device mesh engine, "
-            "which is not ported yet (ROADMAP A10)")
+    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    return run_simulated(cfg, steps=args.steps, regions=args.regions,
-                         T=args.T, seed=args.seed, lr=args.lr,
-                         device=args.device)
+    if args.simulate:
+        return run_simulated(cfg, steps=args.steps, regions=args.regions,
+                             T=args.T, seed=args.seed,
+                             lr=SIMULATE_LR if args.lr is None else args.lr,
+                             device=dev)
+    lr = MESH_LR[args.optimizer] if args.lr is None else args.lr
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"arch={cfg.name} params={cfg.n_params()/1e6:.1f}M "
+          f"device={name}")
+    run = run_mesh(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                   optimizer=args.optimizer, lr=lr, n_workers=args.n_workers,
+                   churn=args.churn, seed=args.seed,
+                   log_every=args.log_every, device=dev)
+    if dev.type == "cuda":
+        print_mesh_timing(run, dev)
+    losses = run.losses
+    if args.closure_out:
+        clo = ResearchClosure(
+            arch=cfg.name, config=cfg,
+            algorithm={"optimizer": args.optimizer, "lr": lr,
+                       "reduce": "weighted-mean", "steps": args.steps},
+            params=run.engine.state["params"],
+            metrics=[{"step": i, "loss": float(v)}
+                     for i, v in enumerate(losses)],
+            step=args.steps)
+        clo.save(args.closure_out)
+        print(f"saved research closure -> {args.closure_out} "
+              f"(digest {clo.digest})")
+    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,22 +1,83 @@
-"""Serving programs — one factory for every serving step function.
+"""Step builders: the train step and the serving programs for any
+``ArchConfig`` (the PyTorch counterpart of ``repro.train.step``).
 
-The PyTorch counterpart of ``repro.train.step``'s ``ServePrograms`` /
-``build_serve_programs`` / ``build_draft_program``. PyTorch runs
-eagerly, so there is nothing to jit or bucket: a program is a plain
-function, and the engine calls it.
-``build_train_step`` belongs to the multi-device surface (ROADMAP A10).
+``build_train_step`` is the paper's algorithm as one step: every virtual
+worker (a row slice of the batch) contributes the gradient SUM over its
+masked-in tokens, and the division by the GLOBAL masked token count is
+the master's weighted average (MLitB step c); the optimizer update
+(AdaGrad by default) is the master's step. The ``mask`` is the
+elasticity hook: ``core/mesh_engine.py`` widens or zeroes per-worker row
+ranges.
+
+PyTorch runs eagerly, so there is nothing to jit or bucket: a step or a
+program is a plain function, and the caller calls it. ``unroll`` (a JAX
+scan-versus-loop choice) has no meaning here and is ignored.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.flatbuf import build_tree, tree_paths
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import softmax_xent
+from repro_torch.optim.base import Optimizer
+
+PyTree = Any
 
 DECODE_KERNELS = ("flash", "plain")
+
+
+def make_train_state(params: PyTree, optimizer: Optimizer) -> PyTree:
+    return {"params": params, "opt": optimizer.init(params)}
+
+
+def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
+                     remat: bool = True, aux_weight: float = 0.01,
+                     unroll: bool = False
+                     ) -> Callable[[PyTree, Dict[str, torch.Tensor]],
+                                   Tuple[PyTree, Dict[str, torch.Tensor]]]:
+    """``train_step(state, batch) -> (state, metrics)`` on the device the
+    state lies on. ``batch``: ``tokens`` / ``labels`` (B, S) int and
+    ``mask`` (B, S) float, plus a VLM's ``prefix`` or the audio family's
+    ``frames``. The loss is ``sum_nll / max(count, 1) + aux_weight *
+    aux``; gradients come from ``torch.autograd.grad`` over the params'
+    leaves (a leaf the forward does not reach gets zeros, as under
+    ``jax.grad``). ``remat`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint`` inside ``transformer.forward``).
+    ``metrics``: ``loss`` (sum_nll / count), ``tokens`` (the CLAMPED
+    count, so an all-masked batch reports 1.0), ``aux_loss``,
+    ``total_loss``, as 0-d tensors on that device."""
+    del unroll                       # a JAX choice; nothing to unroll here
+    extra = {"vlm": "prefix", "audio": "frames"}.get(cfg.arch_type)
+
+    def train_step(state, batch):
+        paths, leaves = zip(*[(p, x.detach().requires_grad_(True))
+                              for p, x in tree_paths(state["params"])])
+        kw = {extra: batch[extra]} if extra else {}
+        with torch.enable_grad():
+            logits, aux = tf.forward(build_tree(paths, leaves), cfg,
+                                     batch["tokens"], remat=remat, **kw)
+            sum_nll, count = softmax_xent(logits, batch["labels"],
+                                          batch["mask"])
+            # weighted reduce: gradient of (global sum / global count) ==
+            # (sum_w grad_sum_w) / (sum_w n_w) — the master's average
+            count = torch.clamp(count, min=1.0)
+            loss = sum_nll / count + aux_weight * aux
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        new_params, new_opt = optimizer.update(
+            state["params"], build_tree(paths, grads), state["opt"])
+        metrics = {"loss": (sum_nll / count).detach(),
+                   "tokens": count.detach(), "aux_loss": aux.detach(),
+                   "total_loss": loss.detach()}
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
 
 
 @dataclass(frozen=True)

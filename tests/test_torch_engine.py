@@ -252,7 +252,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         f"repro_torch.configs.{c}" for c in (
             "arctic_480b", "command_r_plus_104b", "granite_8b",
             "llama4_scout_17b_a16e", "mamba2_780m", "minitron_8b",
-            "paligemma_3b", "qwen3_4b", "whisper_large_v3", "zamba2_7b")]
+            "paligemma_3b", "qwen3_4b", "whisper_large_v3", "zamba2_7b")] + [
+        # the single-device training path (A10a)
+        "repro_torch.train.step", "repro_torch.core.mesh_engine",
+        "repro_torch.data.pipeline", "repro_torch.launch.train"]
     code = f"NEW = {new!r}\n" + code
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -240,8 +240,12 @@ def test_launcher_simulate_reduced_on_cpu(jax_run, capsys):
                               "steps, clock=")
     assert out[-1].startswith("wan: ") and out[-1].endswith(
         "comm ratio 0.250")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_train.main(["--reduced", "--device", "cpu"])
+    # without --simulate: the mesh engine (A10a)
+    assert t_train.main(["--reduced", "--steps", "2", "--seq", "16",
+                         "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0] == f"arch={ARCH} params=0.3M device=cpu"
+    assert out[-1].startswith("final loss ")
 
 
 def test_lm_entry_points_default_to_cuda():
@@ -250,6 +254,8 @@ def test_lm_entry_points_default_to_cuda():
     cfg = tiny_cfg()
     for call in (lambda: tsim.make_lm_problem(cfg),
                  lambda: build_training(cfg),
-                 lambda: t_train.main(["--simulate", "--reduced"])):
+                 lambda: t_train.main(["--simulate", "--reduced"]),
+                 lambda: t_train.main(["--reduced", "--steps", "1"]),
+                 lambda: t_train.data_stream(cfg.vocab_size, 8, 16)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

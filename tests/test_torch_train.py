@@ -306,8 +306,9 @@ def test_unported_training_options_raise():
     from repro_torch.serving import SpeculativeConfig
     with pytest.raises(ValueError, match="window=2 must exceed k=2"):
         SpeculativeConfig(draft_params={}, draft_cfg=None, k=2, window=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        train.main(["--device", "cpu"])
+    # training without --simulate runs the mesh engine (A10a)
+    assert train.main(["--reduced", "--steps", "1", "--seq", "8",
+                       "--device", "cpu"]) == 0
     with pytest.raises(ValueError, match="deadline_quantile=1.5"):
         TrainingConfig.from_flat(deadline_quantile=1.5)
 
