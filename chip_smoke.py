@@ -202,6 +202,35 @@ result):
    join (masks, tokens and live counts equal, losses and params within
    1e-4 relative) and 2 ``build_train_step`` steps for one config per
    family (losses within 1e-4 relative, aux and params within 1e-4);
+9m. dist-collectives (slice 13) — one ``torch.distributed`` world of 4
+   gloo ranks on the card (``repro_torch.distributed.world``, spawned
+   after kernel 3 was built), mesh (pod 2, data 2):
+   ``weighted_psum_reduce`` and ``hierarchical_weighted_reduce`` within
+   1e-6 of the one-process weighted mean; ``compressed_reduce`` over
+   ``mlitb-lm-100m``'s 100 682 496-entry flat buffer at block 128 with
+   NaN, signed-zero and tie blocks: on every rank the sparsified payload
+   equal bit for bit to kernel 3's plain route on the same card tensors
+   (and the kernel's output to its plain version's), sent + residual =
+   corrected, the reduced result within 1e-6 of the one-process sum,
+   kernel 3 launched once per rank (counters reset just before, read
+   just after), the wire bytes counted;
+9n. mesh-dist — in the same world, ``ElasticMeshSGD(jit_kwargs=dict(
+   in_shardings=, out_shardings=))`` trains ``mlitb-lm-100m`` at full
+   width on mesh (data 2, model 2): 8 x 256 from ``data_stream``, 4
+   workers, worker 1 away for steps 5-9, 15 sgd steps (each collective
+   timed after a sync), then 10 AdaGrad steps at lr 0.003 (timed, nothing
+   synced): every rank the same metrics; tokens and live counts equal to
+   the single-device engine's on the card, losses and the gathered
+   params within 1e-5 relative; then one sgd step at lr 1e4, whose
+   update dwarfs the params: that update within 1e-5 of the
+   single-device one per leaf (f32's rounding of the params hides small
+   updates, so the 15-step update's difference is printed, not gated);
+   each rank's stored bytes and wire bytes
+   per step equal ``run_dryrun``'s; no kernel launched; ms per step, the
+   collectives' share, peak memory per rank;
+9o. mesh-nccl — a NCCL world of ``torch.cuda.device_count()`` ranks, one
+   card each, 10 of those sgd steps: within 1e-6 of the single-device
+   engine, and whether bit for bit;
 10. kernel API (slice 3) — the port's public kernel API
    (``repro_torch.kernels``) at full width, with the launch counters
    reset just before and read just after: ``flash_attention`` over
@@ -236,6 +265,7 @@ import importlib
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -277,6 +307,10 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
     block_topk_flat_ref, fused_block_topk_batched_ref)
 from repro_torch.core.mesh_engine import ElasticMeshSGD  # noqa: E402
+from repro_torch.configs.shapes import InputShape  # noqa: E402
+import repro_torch.distributed.world as dist_world  # noqa: E402
+from repro_torch.launch.dryrun import run_dryrun  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
 import repro_torch.launch.train as train_mod  # noqa: E402
 from repro_torch.launch.train import run_hierarchy, run_lm  # noqa: E402
@@ -3264,6 +3298,21 @@ def leaf_errs(a, b) -> tuple:
     return abs_err, rel
 
 
+def update_errs(a, b, p0) -> tuple:
+    """Two runs' updates from the same start ``p0``: (largest per-leaf
+    ||(a - p0) - (b - p0)|| / ||b - p0||, the update's size
+    ||b - p0|| / ||p0|| over all leaves). Gating the update, not the
+    params, keeps the shared start from hiding a fault in it."""
+    rel = num = den = 0.0
+    for x, y, z in zip(tree_leaves(a), tree_leaves(b), tree_leaves(p0)):
+        x, y, z = (t.detach().double().cpu() for t in (x, y, z))
+        du = float((y - z).norm())
+        rel = max(rel, float(((x - z) - (y - z)).norm()) / max(du, 1e-30))
+        num += du ** 2
+        den += float(z.norm()) ** 2
+    return rel, (num / den) ** 0.5
+
+
 def mesh_small(device: str) -> dict:
     """The reduced qwen3 through ``ElasticMeshSGD`` (B 8, S 16, 4
     workers, sgd 0.1): 4 steps, leave(2), a step, join(2), a step."""
@@ -3460,6 +3509,271 @@ def phase_mesh_train(card: str) -> dict:
               f"{k} loss {v['loss_rel']:.1e} params {v['param_abs']:.1e}"
               for k, v in fam.items()) + f" (bound {MESH_TOL:g}) | {card}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# slice 13: the multi-device surface, 4 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+DIST_RANKS = 4
+DIST_N = 100_682_496            # mlitb-lm-100m's flat parameter buffer
+DIST_BLOCK = 128
+# rank 1: two NaNs in block 5; rank 2: block 7 all signed zeros and a
+# magnitude tie in block 9; rank 3: a tie of opposite signs in block 11
+DIST_SPECIALS = ([(1, 5 * 128 + 3, float("nan")),
+                  (1, 5 * 128 + 9, float("nan"))]
+                 + [(2, 7 * 128 + i, -0.0 if i % 2 else 0.0)
+                    for i in range(128)]
+                 + [(2, 9 * 128 + 4, 9.5), (2, 9 * 128 + 70, 9.5),
+                    (3, 11 * 128 + 1, 9.5), (3, 11 * 128 + 2, -9.5)])
+DIST_TOL = 1e-6                 # reduces against one-process references
+MESH_DIST = ((2, 2), ("data", "model"))
+MESH_DIST_SGD, MESH_DIST_ADAGRAD = 15, 10
+MESH_DIST_CHURN = {5: [("leave", 1)], 10: [("join", 1)]}
+MESH_DIST_LIVE = [4] * 5 + [3] * 5 + [4] * 5
+MESH_DIST_LR = 0.01             # sgd: the params gate
+# one sgd step whose update dwarfs the params, so that f32's resolution
+# of the params does not hide the update: the update gate
+MESH_DIST_STEP_LR = 1e4
+MESH_DIST_TOL = 1e-5
+NCCL_STEPS, NCCL_TOL = 10, 1e-6
+
+
+def single_mesh_run(steps: int, keep_at: int, lr: float = MESH_DIST_LR):
+    """The port's single-device engine on the card, as the ranks run it:
+    ``mlitb-lm-100m`` from seed 0, ``data_stream`` seed 0, sgd at ``lr``,
+    the churn schedule. Returns (history, the initial params, params after
+    ``keep_at`` steps, final params), the first two on the host."""
+    cfg = get_config(ARCH)
+    opt = sgd(lr=lr)
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    p0 = tree_map(lambda x: x.detach().cpu(), params)
+    eng = ElasticMeshSGD(
+        train_step=build_train_step(cfg, opt, remat=False),
+        state=make_train_state(params, opt), n_workers=MESH_WORKERS,
+        global_batch=MESH_BATCH)
+    del params
+    stream = train_mod.data_stream(cfg.vocab_size, MESH_BATCH, MESH_SEQ, 0,
+                                   device="cuda")
+    kept = None
+    for i in range(steps):
+        for kind, w in MESH_DIST_CHURN.get(i, []):
+            getattr(eng, kind)(w)
+        eng.step(next(stream))
+        if i + 1 == keep_at:
+            kept = tree_map(lambda x: x.detach().cpu(),
+                            eng.state["params"])
+    return eng.history, p0, kept, eng.state["params"]
+
+
+def history_gate(got, want, tol: float, what: str) -> float:
+    """Tokens and live counts exact, losses within ``tol`` relative;
+    returns the largest relative loss difference."""
+    if [(h["tokens"], h["n_live"]) for h in got] != \
+            [(h["tokens"], h["n_live"]) for h in want]:
+        raise AssertionError(f"{what}: tokens / live differ: "
+                             f"{[(h['tokens'], h['n_live']) for h in got]}")
+    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, want)
+              for k in ("loss", "total_loss"))
+    if not rel <= tol:
+        raise AssertionError(f"{what}: losses {rel} relative (bound {tol})")
+    return rel
+
+
+def phase_dist(card: str) -> dict:
+    """``[dist-collectives]`` and ``[mesh-dist]``: one world of 4 gloo
+    ranks on the card (``distributed.world``; kernel 3 was built before
+    the spawn, so the ranks load it), then the single-device gate in this
+    process."""
+    tk_ops.block_topk_library()          # built here, loaded by the ranks
+    work = ROOT / "build" / "dist"
+    shutil.rmtree(work, ignore_errors=True)      # a stale rendezvous file
+    work.mkdir(parents=True)
+    gathered = str(work / "mesh_dist_params.pt")
+    gathered_step = str(work / "mesh_dist_step.pt")
+    coll_job = {"n": DIST_N, "seed": 11, "block": DIST_BLOCK,
+                "counts": [3, 1, 0, 4], "specials": DIST_SPECIALS}
+    mesh_job = {
+        "arch": ARCH, "mesh": MESH_DIST, "batch": MESH_BATCH,
+        "seq": MESH_SEQ, "n_workers": MESH_WORKERS, "batches": 0, "seed": 0,
+        "runs": [
+            # the gate: sgd under churn, each collective timed after a
+            # sync (its share of the step)
+            {"optimizer": ("sgd", {"lr": MESH_DIST_LR}),
+             "steps": MESH_DIST_SGD, "churn": MESH_DIST_CHURN,
+             "timed": True, "gather": gathered},
+            # the timing run: AdaGrad lr 0.003, nothing synced
+            {"optimizer": ("adagrad", {"lr": 0.003}),
+             "steps": MESH_DIST_ADAGRAD},
+            # the update gate: one sgd step at a large lr
+            {"optimizer": ("sgd", {"lr": MESH_DIST_STEP_LR}), "steps": 1,
+             "gather": gathered_step}]}
+    free_card()
+    t0 = time.perf_counter()
+    res = dist_world.spawn_world(
+        dist_world.chain_program, DIST_RANKS,
+        {"chain": [(dist_world.collectives_program, coll_job),
+                   (dist_world.mesh_sgd_program, mesh_job)]},
+        str(work), backend="gloo", device="cuda", threads=2)
+    world_s = time.perf_counter() - t0
+    coll = [r[0] for r in res]
+    mesh = [r[1] for r in res]
+    # -- [dist-collectives] ---------------------------------------------------
+    for c in coll:
+        bad = [k for k in ("sent_equals_plain", "kernel_equals_plain",
+                           "feedback_identity") if not c[k]]
+        bad += [k for k in ("flat_rel", "hier_rel", "compressed_rel")
+                if not c[k] <= DIST_TOL]
+        if bad:
+            raise AssertionError(f"[dist-collectives] rank {c['rank']}: "
+                                 f"{bad}: {c}")
+        if c["launches"]["block_topk"] != 1 or any(
+                n for k, n in c["launches"].items() if k != "block_topk"):
+            raise AssertionError(f"[dist-collectives] rank {c['rank']} "
+                                 f"launches {c['launches']}: kernel 3 once")
+        want = {"all-reduce": 2 * (4 + 4 * DIST_N)}
+        if c["wire_bytes"] != want:
+            raise AssertionError(f"[dist-collectives] rank {c['rank']} wire "
+                                 f"bytes {c['wire_bytes']}, want {want}")
+    worst = {k: max(c[k] for c in coll)
+             for k in ("flat_rel", "hier_rel", "compressed_rel")}
+    ms = [c["compressed_ms"] for c in coll]
+    kms = [c["kernel_ms"] for c in coll]
+    pms = [c["picks_ms"] for c in coll]
+    print(f"[dist-collectives] {DIST_RANKS} gloo ranks on one card, mesh "
+          f"(pod 2, data 2): weighted_psum_reduce {worst['flat_rel']:.1e}, "
+          f"hierarchical (data, then pod) {worst['hier_rel']:.1e} of the "
+          f"one-process weighted mean; compressed_reduce over "
+          f"{DIST_N} entries at block {DIST_BLOCK}: sent = kernel 3's plain "
+          f"route bit for bit on every rank (NaN, signed-zero and tie "
+          f"blocks), sent + residual = corrected, reduced "
+          f"{worst['compressed_rel']:.1e} of the one-process sum (bound "
+          f"{DIST_TOL:g}); block_topk launched once per rank; "
+          f"{spread(ms)} ms a call, of which the sparsify's kernel 3 "
+          f"{spread(kms)} ms and its post-pass {spread(pms)} ms (alone, "
+          f"best of 3, the ranks sharing the card); "
+          f"{2 * (4 + 4 * DIST_N)} bytes on the wire per rank (gloo through "
+          f"host memory, no NCCL or NVLink figure) | {card}")
+    # -- [mesh-dist] ------------------------------------------------------------
+    cfg = get_config(ARCH)
+    if not dist_world.same_everywhere(mesh):
+        raise AssertionError("[mesh-dist] ranks report different metrics")
+    sgd_runs = [m["runs"][0] for m in mesh]
+    ada_runs = [m["runs"][1] for m in mesh]
+    step_hist = mesh[0]["runs"][2]["history"]
+    hist = sgd_runs[0]["history"]
+    if [h["n_live"] for h in hist] != MESH_DIST_LIVE:
+        raise AssertionError(f"[mesh-dist] live {[h['n_live'] for h in hist]}")
+    launched = [r["launches"] for m in mesh for r in m["runs"]]
+    if any(any(v.values()) for v in launched):
+        raise AssertionError(f"[mesh-dist] kernels launched: {launched}")
+    shape = InputShape("mesh-dist", MESH_SEQ, MESH_BATCH, "train")
+    dmesh = Mesh(*MESH_DIST)
+    for runs, opt in ((sgd_runs, "sgd"), (ada_runs, "adagrad")):
+        dr = run_dryrun(ARCH, shape, mesh=dmesh, optimizer_name=opt)
+        for r in runs:
+            if r["stored_bytes"] != dr["memory"]["state_bytes"] or any(
+                    w != dr["collectives"] for w in r["wire_bytes"]):
+                raise AssertionError(
+                    f"[mesh-dist] {opt}: stored {r['stored_bytes']} / wire "
+                    f"{r['wire_bytes'][0]} against the dry-run's "
+                    f"{dr['memory']['state_bytes']} / {dr['collectives']}")
+    free_card()
+    t1 = time.perf_counter()
+    want_hist, p0, p10, p_end = single_mesh_run(MESH_DIST_SGD, NCCL_STEPS)
+    loss_rel = history_gate(hist, want_hist, MESH_DIST_TOL, "[mesh-dist]")
+    got = torch.load(gathered)
+    Path(gathered).unlink()
+    _, p_rel = leaf_errs(got, p_end)
+    if not p_rel <= MESH_DIST_TOL:
+        raise AssertionError(f"[mesh-dist] gathered params {p_rel} relative "
+                             f"(bound {MESH_DIST_TOL})")
+    # what the params gate cannot see: 15 small updates, each stored
+    # through the f32 params' rounding (printed, not gated)
+    u15_rel, u15_size = update_errs(got, p_end, p0)
+    del got, p_end
+    step_want, _, _, p_step1 = single_mesh_run(1, 1, lr=MESH_DIST_STEP_LR)
+    single_s = time.perf_counter() - t1
+    step_loss = history_gate(step_hist, step_want, MESH_DIST_TOL,
+                             "[mesh-dist] update gate")
+    got = torch.load(gathered_step)
+    Path(gathered_step).unlink()
+    u_rel, u_size = update_errs(got, p_step1, p0)
+    if not u_rel <= MESH_DIST_TOL:
+        raise AssertionError(f"[mesh-dist] one step's update {u_rel} "
+                             f"relative (bound {MESH_DIST_TOL})")
+    del got, p_step1
+    sgd_ms = [x for r in sgd_runs for x in r["host_ms"][1:]]
+    comm = [c / h for r in sgd_runs for c, h in
+            zip(r["comm_ms"][1:], r["host_ms"][1:])]
+    ada_ms = [x for r in ada_runs for x in r["host_ms"][1:]]
+    peak = [r["peak_mem_bytes"] / 2**30 for r in sgd_runs + ada_runs]
+    print(f"[mesh-dist] {ARCH} full width ({cfg.n_params()} parameters, "
+          f"f32, TF32 off) through ElasticMeshSGD(jit_kwargs=in/out "
+          f"shardings) on {DIST_RANKS} gloo ranks, mesh (data 2, model 2), "
+          f"{MESH_BATCH} x {MESH_SEQ}, {MESH_WORKERS} workers, worker 1 away "
+          f"for steps 5-9, sgd lr {MESH_DIST_LR}: every rank the same "
+          f"metrics; tokens and live = the single-device engine's, losses "
+          f"{loss_rel:.2e}, gathered params {p_rel:.2e} relative per leaf "
+          f"(bound {MESH_DIST_TOL:g}; their update from the start, "
+          f"{u15_size:.2e} of the params, differs by {u15_rel:.2e} of "
+          f"itself, not gated: f32's rounding of the params); one sgd step "
+          f"at lr {MESH_DIST_STEP_LR:g} (the update {u_size:.2e} of the "
+          f"params): update {u_rel:.2e} of the single-device one per leaf, "
+          f"loss {step_loss:.2e} (bound {MESH_DIST_TOL:g}); stored bytes "
+          f"{sgd_runs[0]['stored_bytes']} and wire bytes per step "
+          f"{sgd_runs[0]['wire_bytes'][0]} per rank = run_dryrun's; no "
+          f"kernel launched | {card}")
+    print(f"[mesh-dist] ms per step (host clock ending in the metrics' host "
+          f"copy, steps after the first, all ranks): AdaGrad lr 0.003 "
+          f"{spread(ada_ms)}; sgd with a sync before each collective "
+          f"{spread(sgd_ms)}, the collectives' share {spread(comm)}; peak "
+          f"memory per rank {min(peak):.2f}-{max(peak):.2f} GiB; world "
+          f"{world_s:.1f} s, single-device gate {single_s:.1f} s (gloo "
+          f"through host memory on one card: no NCCL or NVLink figure) "
+          f"| {card}")
+    out = {"collectives": coll, "mesh_dist": mesh, "world_s": world_s,
+           "loss_rel": loss_rel, "param_rel": p_rel, "update_rel": u_rel,
+           "update_size": u_size, "update15_rel": u15_rel,
+           "block_topk_launches": sum(c["launches"]["block_topk"]
+                                      for c in coll)}
+    # -- [mesh-nccl] --------------------------------------------------------------
+    n = torch.cuda.device_count()
+    model = 2 if n % 2 == 0 and n >= 4 else 1
+    nccl_job = {"arch": ARCH, "mesh": ((n // model, model),
+                                       ("data", "model")),
+                "batch": MESH_BATCH, "seq": MESH_SEQ,
+                "n_workers": MESH_WORKERS, "batches": 0, "seed": 0,
+                "runs": [{"optimizer": ("sgd", {"lr": MESH_DIST_LR}),
+                          "steps": NCCL_STEPS, "churn": MESH_DIST_CHURN,
+                          "gather": gathered}]}
+    free_card()
+    t2 = time.perf_counter()
+    nres = dist_world.spawn_world(dist_world.mesh_sgd_program, n, nccl_job,
+                                  str(work / "nccl"), backend="nccl",
+                                  device="cuda-per-rank", threads=2)
+    nccl_s = time.perf_counter() - t2
+    nhist = nres[0]["runs"][0]["history"]
+    n_rel = history_gate(nhist, want_hist[:NCCL_STEPS], NCCL_TOL,
+                         "[mesh-nccl]")
+    got = torch.load(gathered)
+    Path(gathered).unlink()
+    n_abs, np_rel = leaf_errs(got, p10)
+    bitwise = n_abs == 0.0 and all(
+        a == b for a, b in zip(nhist, want_hist[:NCCL_STEPS]))
+    if not np_rel <= NCCL_TOL:
+        raise AssertionError(f"[mesh-nccl] params {np_rel} relative (bound "
+                             f"{NCCL_TOL})")
+    nms = [x for x in nres[0]["runs"][0]["host_ms"][1:]]
+    print(f"[mesh-nccl] a NCCL world of {n} rank(s), one card each, mesh "
+          f"{nccl_job['mesh'][0]}: {NCCL_STEPS} sgd steps = the "
+          f"single-device engine, losses {n_rel:.2e}, params {np_rel:.2e} "
+          f"relative (bound {NCCL_TOL:g}), bitwise {bitwise}; ms per step "
+          f"{spread(nms)}; world {nccl_s:.1f} s | {card}")
+    out["nccl"] = {"ranks": n, "loss_rel": n_rel, "param_rel": np_rel,
+                   "bitwise": bitwise, "host_ms": nms, "world_s": nccl_s}
+    del got, p0, p10
+    free_card()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4010,6 +4324,9 @@ def main() -> int:
     t12 = time.perf_counter()
     mesh = phase_mesh_train(card)
     mesh["seconds"] = time.perf_counter() - t12
+    t13 = time.perf_counter()
+    dist = phase_dist(card)
+    dist["seconds"] = time.perf_counter() - t13
     moe_t = slice10["moe"]["timing"]
     main_api = phase_api(card)
     fa = phase_flash_attention(card, main_api)
@@ -4060,7 +4377,9 @@ def main() -> int:
         {"name": "block_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/topk_compress/block_topk.cu",
          "replaces": "src/repro/kernels/topk_compress/topk_compress.py:22",
-         "launches": launches["block_topk"],
+         "launches": dist["block_topk_launches"],
+         "launches_per_rank_per_call": 1,
+         "launches_api": launches["block_topk"],
          "max_abs_err": bt["max_abs_err"], "ms": bt_t["ms"],
          "plain_ms": bt_t["plain_ms"], "bound_ms": bt_t["bound_ms"],
          "bound_by": bt_t["bound_by"], "library_ms": bt_t["library_ms"]},
@@ -4105,6 +4424,7 @@ def main() -> int:
          "reduce_lm": lm, "train_lm": train_lm, "train_serve": ts,
          "train_serve_small": ts_small, "slice9": slice9,
          "slice10": slice10, "slice11": slice11, "mesh_train": mesh,
+         "dist": dist,
          "api_launches": launches,
          "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt,
@@ -4123,7 +4443,8 @@ def main() -> int:
           + f"); slice 11's "
           f"{sum(v['seconds'] for v in slice11.values()):.1f} s ("
           + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice11.items())
-          + f"); slice 12's mesh-train {mesh['seconds']:.1f} s")
+          + f"); slice 12's mesh-train {mesh['seconds']:.1f} s; slice 13's "
+          f"dist {dist['seconds']:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

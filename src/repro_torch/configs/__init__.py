@@ -8,3 +8,8 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 from repro_torch.configs import all_configs  # noqa: F401,E402
+from repro_torch.configs.shapes import (  # noqa: F401,E402
+    SHAPE_REGISTRY,
+    InputShape,
+    get_shape,
+)

@@ -13,9 +13,16 @@ Each row slice of the global batch is a *virtual worker*:
     update.
 
 The engine holds no device of its own: it follows the state's tensors,
-and a batch's arrays are moved there. The reference's ``jit_kwargs`` are
-shardings over a device mesh, which the port does not have yet (ROADMAP
-A10b); a non-empty one raises.
+and a batch's arrays are moved there.
+
+The reference's ``jit_kwargs`` are shardings over a device mesh. Given
+``in_shardings`` / ``out_shardings`` (``distributed.sharding.to_shardings``
+trees), the engine runs on every rank of the entered ``Mesh`` and wraps
+the step in ``distributed.sharded_step.ShardedTrainStep``: ``state``
+holds this rank's shards (``gather_state()`` rebuilds the whole), each
+slice of the data axis is a virtual worker's rows, and churn zeroes its
+mask rows. ``donate_argnums`` is taken and has no effect (every step
+replaces the state); any other key raises.
 """
 from __future__ import annotations
 
@@ -24,10 +31,13 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.flatbuf import tree_leaves
+from repro_torch.core.flatbuf import tree_leaves, tree_paths
 from repro_torch.core.scheduler import AdaptiveScheduler
+from repro_torch.distributed.sharded_step import ShardedTrainStep
 
 PyTree = Any
+
+JIT_KEYS = ("in_shardings", "out_shardings", "donate_argnums")
 
 
 class ElasticMeshSGD:
@@ -35,11 +45,11 @@ class ElasticMeshSGD:
                  n_workers: int, global_batch: int,
                  scheduler: Optional[AdaptiveScheduler] = None,
                  jit_kwargs: Optional[dict] = None):
-        if jit_kwargs:
-            raise NotImplementedError(
-                f"jit_kwargs={sorted(jit_kwargs)}: shardings over a device "
-                f"mesh are the multi-device surface, not ported yet "
-                f"(ROADMAP A10b)")
+        jit_kwargs = dict(jit_kwargs or {})
+        unknown = sorted(set(jit_kwargs) - set(JIT_KEYS))
+        if unknown:
+            raise TypeError(f"jit_kwargs keys {unknown}: the port takes "
+                            f"{list(JIT_KEYS)}")
         if global_batch % n_workers:
             raise ValueError(f"global_batch={global_batch} is not a "
                              f"multiple of n_workers={n_workers}")
@@ -50,9 +60,19 @@ class ElasticMeshSGD:
         self.scheduler = scheduler or AdaptiveScheduler(T=1.0)
         for w in self._names():
             self.scheduler.add_worker(w)
+        self._sharded = _sharded_step(train_step, jit_kwargs, global_batch)
+        if self._sharded is not None:
+            state = self._sharded.shard_state(state)
+            train_step = self._sharded
         self.state = state
         self._step = train_step
         self.history: List[Dict[str, float]] = []
+
+    def gather_state(self) -> PyTree:
+        """The whole state (on every rank when sharded)."""
+        if self._sharded is None:
+            return self.state
+        return self._sharded.gather_state(self.state)
 
     def _names(self) -> List[str]:
         return [f"vw{i}" for i in range(self.n_workers)]
@@ -117,3 +137,21 @@ class ElasticMeshSGD:
         out["n_live"] = self.n_live
         self.history.append(out)
         return out
+
+
+def _sharded_step(train_step, jit_kwargs: dict, global_batch: int):
+    """``ShardedTrainStep`` for the shardings in ``jit_kwargs``, or None
+    when it names none."""
+    ins, outs = jit_kwargs.get("in_shardings"), jit_kwargs.get("out_shardings")
+    if ins is None and outs is None:
+        return None
+    state_sh = (ins or outs)[0]
+    if ins is not None and outs is not None and outs[0] is not None:
+        a = [(p, s.spec) for p, s in tree_paths(ins[0])]
+        b = [(p, s.spec) for p, s in tree_paths(outs[0])]
+        if a != b:
+            raise ValueError("out_shardings' state placement differs from "
+                             "in_shardings': the port keeps one placement")
+    batch_sh = ins[1] if ins is not None else None
+    return ShardedTrainStep.from_shardings(train_step, state_sh, batch_sh,
+                                           global_batch)

@@ -22,7 +22,9 @@ DeviceLike = Union[str, torch.device]
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for
-    but absent. The CPU runs only when the caller names it."""
+    but absent. The CPU runs only when the caller names it. ``"meta"``
+    is taken as well: it allocates nothing (the dry-runs' shape-only
+    trees and caches)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -34,8 +36,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         # full float32, and TF32 keeps only ~3 decimal digits
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"device={str(device)!r}: expected 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"device={str(device)!r}: expected 'cuda', 'cpu' "
+                         f"or 'meta'")
     return dev
 
 

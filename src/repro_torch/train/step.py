@@ -50,19 +50,28 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     (``torch.utils.checkpoint`` inside ``transformer.forward``).
     ``metrics``: ``loss`` (sum_nll / count), ``tokens`` (the CLAMPED
     count, so an all-masked batch reports 1.0), ``aux_loss``,
-    ``total_loss``, as 0-d tensors on that device."""
+    ``total_loss``, as 0-d tensors on that device. The returned function
+    carries its parts as attributes (``cfg``, ``optimizer`` and
+    ``loss_and_grads``) for ``distributed/sharded_step.py``."""
     del unroll                       # a JAX choice; nothing to unroll here
     extra = {"vlm": "prefix", "audio": "frames"}.get(cfg.arch_type)
 
-    def train_step(state, batch):
+    def loss_and_grads(params, batch, reduce_sums=None):
+        """(gradient tree, metrics) of one step's loss on ``batch``.
+        ``reduce_sums`` (the sharded step's) maps the local ``(sum_nll,
+        count)`` to the global ones before the division, so a rank's
+        gradient is its share of the global loss's."""
         paths, leaves = zip(*[(p, x.detach().requires_grad_(True))
-                              for p, x in tree_paths(state["params"])])
+                              for p, x in tree_paths(params)])
         kw = {extra: batch[extra]} if extra else {}
         with torch.enable_grad():
             logits, aux = tf.forward(build_tree(paths, leaves), cfg,
                                      batch["tokens"], remat=remat, **kw)
             sum_nll, count = softmax_xent(logits, batch["labels"],
                                           batch["mask"])
+            total_nll = sum_nll
+            if reduce_sums is not None:
+                total_nll, count = reduce_sums(sum_nll.detach(), count)
             # weighted reduce: gradient of (global sum / global count) ==
             # (sum_w grad_sum_w) / (sum_w n_w) — the master's average
             count = torch.clamp(count, min=1.0)
@@ -70,13 +79,22 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
-        new_params, new_opt = optimizer.update(
-            state["params"], build_tree(paths, grads), state["opt"])
-        metrics = {"loss": (sum_nll / count).detach(),
-                   "tokens": count.detach(), "aux_loss": aux.detach(),
-                   "total_loss": loss.detach()}
+        mean = (total_nll / count).detach()
+        metrics = {"loss": mean, "tokens": count.detach(),
+                   "aux_loss": aux.detach(),
+                   "total_loss": (mean + aux_weight * aux).detach()}
+        return build_tree(paths, grads), metrics
+
+    def train_step(state, batch):
+        grads, metrics = loss_and_grads(state["params"], batch)
+        new_params, new_opt = optimizer.update(state["params"], grads,
+                                               state["opt"])
         return {"params": new_params, "opt": new_opt}, metrics
 
+    # the parts the sharded step (distributed/sharded_step.py) reuses
+    train_step.cfg = cfg
+    train_step.optimizer = optimizer
+    train_step.loss_and_grads = loss_and_grads
     return train_step
 
 

@@ -255,7 +255,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "paligemma_3b", "qwen3_4b", "whisper_large_v3", "zamba2_7b")] + [
         # the single-device training path (A10a)
         "repro_torch.train.step", "repro_torch.core.mesh_engine",
-        "repro_torch.data.pipeline", "repro_torch.launch.train"]
+        "repro_torch.data.pipeline", "repro_torch.launch.train"] + [
+        # the multi-device surface (A10b)
+        f"repro_torch.distributed.{m}" for m in (
+            "sharding", "activation_sharding", "collectives",
+            "comm_analysis", "sharded_step", "world")] + [
+        f"repro_torch.launch.{m}" for m in (
+            "mesh", "specs", "dryrun", "dryrun_all")] + [
+        "repro_torch.configs.shapes"]
     code = f"NEW = {new!r}\n" + code
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -34,6 +34,11 @@ from repro_torch.checkpoint.convert import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.core.flatbuf import tree_paths  # noqa: E402
 from repro_torch.core.mesh_engine import ElasticMeshSGD  # noqa: E402
+from repro_torch.distributed.sharding import (param_specs,  # noqa: E402
+                                              to_shardings)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models.transformer import \
+    init_params as t_init_params  # noqa: E402
 from repro_torch.optim import adagrad, sgd  # noqa: E402
 from repro_torch.train.step import (build_train_step,  # noqa: E402
                                     make_train_state)
@@ -314,13 +319,23 @@ def test_mesh_engine_power_feed_keeps_masks_equal():
 
 
 def test_mesh_engine_refuses_shardings_and_ragged_batch():
+    """Shardings run only inside an entered mesh (the sharded engine's
+    own tests spawn its worlds: tests/test_torch_mesh_dist.py); a
+    ``jit_kwargs`` key the port does not take raises by name."""
     cfg = t_get_config("qwen3-4b").reduced()
     opt = sgd(lr=0.1)
     st = {"params": {"w": torch.zeros(2)}, "opt": {}}
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+    full = make_train_state(t_init_params(cfg, device="cpu"), opt)
+    mesh = make_host_mesh(2, 2)
+    sh = to_shardings(param_specs(full, cfg, mesh, "train"), mesh)
+    with pytest.raises(RuntimeError, match="is not entered"):
+        ElasticMeshSGD(train_step=build_train_step(cfg, opt), state=full,
+                       n_workers=4, global_batch=8,
+                       jit_kwargs={"in_shardings": (sh, None)})
+    with pytest.raises(TypeError, match="static_argnums"):
         ElasticMeshSGD(train_step=build_train_step(cfg, opt), state=st,
                        n_workers=4, global_batch=8,
-                       jit_kwargs={"in_shardings": None})
+                       jit_kwargs={"static_argnums": (1,)})
     with pytest.raises(ValueError, match="multiple of n_workers=3"):
         ElasticMeshSGD(train_step=build_train_step(cfg, opt), state=st,
                        n_workers=3, global_batch=8)
