@@ -227,7 +227,24 @@ result):
    updates, so the 15-step update's difference is printed, not gated);
    each rank's stored bytes and wire bytes
    per step equal ``run_dryrun``'s; no kernel launched; ms per step, the
-   collectives' share, peak memory per rank;
+   collectives' share (the gathers' and the activation all-reduces' host
+   ms apart), peak memory per rank. Since slice 14 the step splits its
+   compute over ``model`` (heads, FF, vocab; ``tensor_parallel``) and
+   gathers each split leaf over ``data`` only;
+9p. mesh-moe (slice 14) — first, in this process, the single-device
+   engine trains ``llama4-scout-17b-a16e`` at full width cut to 1 of 48
+   layers (bf16, 8 x 256, 3 sgd steps at lr 0.01) on the card, and the
+   ``.reduced()`` f32 model (8 x 32, 6 sgd steps at lr 0.1, worker 2
+   away for steps 3-4) with each MoE impl on the card and on the CPU;
+   then in the same world as mesh-dist the sharded engine runs both on
+   (data 2, model 2), a batch split of 2, experts split over ``model``:
+   every rank the same metrics; full width: losses within 2e-2
+   relative and aux within 1e-2 of the single-device engine's (bf16,
+   PR 20's rule), stored and wire bytes per rank = ``run_dryrun``'s,
+   ms per step with the gathers' and activation all-reduces' host ms,
+   peak memory per rank; reduced: losses and aux within 1e-5 of both
+   single-device engines, the gathered params within 1e-5 (per leaf
+   ``||a - b|| / ||b||``); no kernel launched;
 9o. mesh-nccl — a NCCL world of ``torch.cuda.device_count()`` ranks, one
    card each, 10 of those sgd steps: within 1e-6 of the single-device
    engine, and whether bit for bit;
@@ -3536,6 +3553,66 @@ MESH_DIST_LR = 0.01             # sgd: the params gate
 MESH_DIST_STEP_LR = 1e4
 MESH_DIST_TOL = 1e-5
 NCCL_STEPS, NCCL_TOL = 10, 1e-6
+# slice 14: MoE under a batch split, the experts split over `model`;
+# llama4-scout at full width cut to 1 of 48 layers (bf16), 3 sgd steps
+MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_STEPS = "llama4-scout-17b-a16e", 1, 3
+MESH_MOE_LR = 0.01
+MESH_MOE_LOSS_TOL, MESH_MOE_AUX_TOL = 2e-2, 1e-2    # bf16 (PR 20's rule)
+# ... and at .reduced() widths in f32 under leave / join, each MoE impl
+MESH_MOE_SMALL = dict(batch=8, seq=32, steps=6, lr=0.1,
+                      churn={3: [("leave", 2)], 5: [("join", 2)]})
+MESH_MOE_SMALL_TOL = 1e-5
+MOE_IMPLS = ("einsum", "sort")
+
+
+def mesh_moe_cfg(impl: str = None, reduced: bool = False):
+    """``[mesh-moe]``'s config: llama4-scout cut to 1 layer, or its
+    ``.reduced()``; ``impl`` an MoE impl."""
+    cfg = get_config(MESH_MOE_ARCH)
+    cfg = cfg.reduced() if reduced else dataclasses.replace(
+        cfg, n_layers=MESH_MOE_LAYERS)
+    if impl:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               impl=impl))
+    return cfg
+
+
+def single_engine_run(cfg, *, steps: int, lr: float, churn: dict,
+                      batch: int, seq: int, device: str,
+                      keep_params: bool = True):
+    """The port's single-device engine as the ranks run it: ``cfg`` from
+    seed 0, ``data_stream`` seed 0, sgd at ``lr``, 4 workers under
+    ``churn``. Returns (history, the final params on the host, or None
+    unless ``keep_params``)."""
+    opt = sgd(lr=lr)
+    eng = ElasticMeshSGD(
+        train_step=build_train_step(cfg, opt, remat=False),
+        state=make_train_state(tf.init_params(cfg, seed=0, device=device),
+                               opt), n_workers=MESH_WORKERS,
+        global_batch=batch)
+    stream = train_mod.data_stream(cfg.vocab_size, batch, seq, 0,
+                                   device=device)
+    for i in range(steps):
+        for kind, w in churn.get(i, []):
+            getattr(eng, kind)(w)
+        eng.step(next(stream))
+    hist = eng.history
+    params = tree_map(lambda x: x.detach().cpu(), eng.state["params"]) \
+        if keep_params else None
+    del eng
+    free_card()
+    return hist, params
+
+
+def moe_history_gate(got, want, loss_tol: float, aux_tol: float,
+                     what: str) -> tuple:
+    """Tokens and live counts exact, losses within ``loss_tol``
+    relative and aux within ``aux_tol``: (loss, aux) differences."""
+    rel = history_gate(got, want, loss_tol, what)
+    aux = max(abs(a["aux_loss"] - b["aux_loss"]) for a, b in zip(got, want))
+    if not aux <= aux_tol:
+        raise AssertionError(f"{what}: aux {aux} (bound {aux_tol})")
+    return rel, aux
 
 
 def single_mesh_run(steps: int, keep_at: int, lr: float = MESH_DIST_LR):
@@ -3579,15 +3656,135 @@ def history_gate(got, want, tol: float, what: str) -> float:
     return rel
 
 
+def single_moe_runs(card: str) -> dict:
+    """``[mesh-moe]``'s single-device engines, run before the world (the
+    full-width one would not fit beside it): llama4-scout cut to 1 layer
+    in bf16 on the card, and the ``.reduced()`` f32 runs under leave /
+    join with each MoE impl on the card and on the CPU."""
+    t0 = time.perf_counter()
+    cfg = mesh_moe_cfg()
+    shape = InputShape("mesh-moe", MESH_SEQ, MESH_BATCH, "train")
+    dr = run_dryrun(cfg, shape, mesh=Mesh(*MESH_DIST), optimizer_name="sgd",
+                    remat=False)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    hist, _ = single_engine_run(cfg, steps=MESH_MOE_STEPS, lr=MESH_MOE_LR,
+                                churn={}, batch=MESH_BATCH, seq=MESH_SEQ,
+                                device="cuda", keep_params=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sm = MESH_MOE_SMALL
+    small = {(impl, dev): single_engine_run(
+        mesh_moe_cfg(impl, reduced=True), steps=sm["steps"], lr=sm["lr"],
+        churn=sm["churn"], batch=sm["batch"], seq=sm["seq"], device=dev)
+        for impl in MOE_IMPLS for dev in ("cuda", "cpu")}
+    print(f"[mesh-moe] reckoned before the world: {MESH_MOE_ARCH} at full "
+          f"width, {MESH_MOE_LAYERS} of {get_config(MESH_MOE_ARCH).n_layers}"
+          f" layers, bf16 ({cfg.n_params()} parameters), sgd, on (data 2, "
+          f"model 2): per rank {dr['memory']['state_bytes']} bytes stored, "
+          f"wire {dr['collectives']} a step (run_dryrun); the single-device "
+          f"engine's peak {peak:.2f} GiB, so it runs before the world | "
+          f"{card}")
+    return {"cfg": cfg, "dryrun": dr, "history": hist, "peak_gib": peak,
+            "small": small, "seconds": time.perf_counter() - t0}
+
+
+def mesh_moe_gates(card: str, runs: list, single: dict, work: Path
+                   ) -> dict:
+    """``[mesh-moe]``'s gates on the world's runs (every rank's) against
+    the single-device engines of ``single_moe_runs``; rank 0 saved the
+    reduced runs' gathered params under ``work``."""
+    if not dist_world.same_everywhere(runs):
+        raise AssertionError("[mesh-moe] ranks report different metrics")
+    launched = [r["launches"] for m in runs for r in m["runs"]]
+    if any(any(v.values()) for v in launched):
+        raise AssertionError(f"[mesh-moe] kernels launched: {launched}")
+    full = [m["runs"][0] for m in runs]
+    hist = full[0]["history"]
+    dr = single["dryrun"]
+    for r in full:
+        if r["stored_bytes"] != dr["memory"]["state_bytes"] or any(
+                w != dr["collectives"] for w in r["wire_bytes"]):
+            raise AssertionError(
+                f"[mesh-moe] stored {r['stored_bytes']} / wire "
+                f"{r['wire_bytes'][0]} against the dry-run's "
+                f"{dr['memory']['state_bytes']} / {dr['collectives']}")
+    loss_rel, aux_abs = moe_history_gate(
+        hist, single["history"], MESH_MOE_LOSS_TOL, MESH_MOE_AUX_TOL,
+        "[mesh-moe] full width, bf16")
+    if not all(math.isfinite(h["loss"]) and h["aux_loss"] > 0
+               for h in hist):
+        raise AssertionError(f"[mesh-moe] metrics {hist}")
+    small = {}
+    for j, impl in enumerate(MOE_IMPLS):
+        got = runs[0]["runs"][1 + j]
+        path = work / f"mesh_moe_{impl}.pt"
+        params = torch.load(path)
+        path.unlink()
+        errs = {}
+        for dev in ("cuda", "cpu"):
+            want_h, want_p = single["small"][(impl, dev)]
+            errs[dev] = moe_history_gate(
+                got["history"], want_h, MESH_MOE_SMALL_TOL,
+                MESH_MOE_SMALL_TOL, f"[mesh-moe] reduced {impl} vs {dev}")
+            _, p_rel = leaf_errs(params, want_p)
+            if not p_rel <= MESH_MOE_SMALL_TOL:
+                raise AssertionError(f"[mesh-moe] reduced {impl}: params "
+                                     f"{p_rel} of the {dev} engine's")
+            errs[dev] += (p_rel,)
+        small[impl] = errs
+    steps = [(h, c, g, a) for r in full for h, c, g, a in zip(
+        r["host_ms"][1:], r["comm_ms"][1:], r["gather_ms"][1:],
+        r["act_ms"][1:])]
+    peak = [r["peak_mem_bytes"] / 2**30 for r in full]
+    cfg = single["cfg"]
+    print(f"[mesh-moe] {MESH_MOE_ARCH} full width, {MESH_MOE_LAYERS} layer, "
+          f"bf16, through ElasticMeshSGD on {DIST_RANKS} gloo ranks, mesh "
+          f"(data 2, model 2), batch split 2, experts / heads / FF / vocab "
+          f"split over model, {MESH_BATCH} x {MESH_SEQ}, {MESH_MOE_STEPS} "
+          f"sgd steps at lr {MESH_MOE_LR}: every rank the same metrics, "
+          f"losses {loss_rel:.2e} relative (bound {MESH_MOE_LOSS_TOL:g}), "
+          f"aux {aux_abs:.2e} (bound {MESH_MOE_AUX_TOL:g}) of the "
+          f"single-device engine's (aux {hist[-1]['aux_loss']:.4f}); "
+          f"stored {full[0]['stored_bytes']} and wire "
+          f"{full[0]['wire_bytes'][0]} bytes per rank = run_dryrun's; no "
+          f"kernel launched | {card}")
+    print(f"[mesh-moe] ms per step (host clock, a sync before each "
+          f"collective, steps after the first, all ranks): "
+          f"{spread([x[0] for x in steps])}; the collectives' share "
+          f"{spread([x[1] / x[0] for x in steps])}, gathers "
+          f"{spread([x[2] for x in steps])} ms, activation all-reduces "
+          f"{spread([x[3] for x in steps])} ms; peak memory per rank "
+          f"{min(peak):.2f}-{max(peak):.2f} GiB (single-device "
+          f"{single['peak_gib']:.2f}) | {card}")
+    print(f"[mesh-moe] {MESH_MOE_ARCH}.reduced() f32 on the same mesh, "
+          f"{MESH_MOE_SMALL['steps']} sgd steps, worker 2 away for step 3-4: "
+          + "; ".join(
+              f"{impl}: losses / aux / params vs the card's single-device "
+              f"engine {e['cuda'][0]:.1e} / {e['cuda'][1]:.1e} / "
+              f"{e['cuda'][2]:.1e}, vs the CPU's {e['cpu'][0]:.1e} / "
+              f"{e['cpu'][1]:.1e} / {e['cpu'][2]:.1e}"
+              for impl, e in small.items())
+          + f" (bound {MESH_MOE_SMALL_TOL:g}) | {card}")
+    return {"history": hist, "loss_rel": loss_rel, "aux_abs": aux_abs,
+            "host_ms": [x[0] for x in steps],
+            "comm_share": [x[1] / x[0] for x in steps],
+            "gather_ms": [x[2] for x in steps],
+            "act_ms": [x[3] for x in steps], "peak_gib": peak,
+            "wire_bytes": full[0]["wire_bytes"][0],
+            "stored_bytes": full[0]["stored_bytes"], "small": small,
+            "n_params": cfg.n_params()}
+
+
 def phase_dist(card: str) -> dict:
-    """``[dist-collectives]`` and ``[mesh-dist]``: one world of 4 gloo
-    ranks on the card (``distributed.world``; kernel 3 was built before
-    the spawn, so the ranks load it), then the single-device gate in this
-    process."""
+    """``[dist-collectives]``, ``[mesh-dist]`` and ``[mesh-moe]``: one
+    world of 4 gloo ranks on the card (``distributed.world``; kernel 3
+    was built before the spawn, so the ranks load it), the single-device
+    gates in this process ([mesh-moe]'s before the world)."""
     tk_ops.block_topk_library()          # built here, loaded by the ranks
     work = ROOT / "build" / "dist"
     shutil.rmtree(work, ignore_errors=True)      # a stale rendezvous file
     work.mkdir(parents=True)
+    single_moe = single_moe_runs(card)
     gathered = str(work / "mesh_dist_params.pt")
     gathered_step = str(work / "mesh_dist_step.pt")
     coll_job = {"n": DIST_N, "seed": 11, "block": DIST_BLOCK,
@@ -3607,16 +3804,30 @@ def phase_dist(card: str) -> dict:
             # the update gate: one sgd step at a large lr
             {"optimizer": ("sgd", {"lr": MESH_DIST_STEP_LR}), "steps": 1,
              "gather": gathered_step}]}
+    sm = MESH_MOE_SMALL
+    moe_job = {
+        "arch": MESH_MOE_ARCH, "mesh": MESH_DIST, "n_workers": MESH_WORKERS,
+        "batches": 0, "seed": 0,
+        "runs": [{"n_layers": MESH_MOE_LAYERS, "batch": MESH_BATCH,
+                  "seq": MESH_SEQ, "steps": MESH_MOE_STEPS, "timed": True,
+                  "optimizer": ("sgd", {"lr": MESH_MOE_LR})}] + [
+            {"reduced": True, "moe_impl": impl, "batch": sm["batch"],
+             "seq": sm["seq"], "steps": sm["steps"], "churn": sm["churn"],
+             "optimizer": ("sgd", {"lr": sm["lr"]}),
+             "gather": str(work / f"mesh_moe_{impl}.pt")}
+            for impl in MOE_IMPLS]}
     free_card()
     t0 = time.perf_counter()
     res = dist_world.spawn_world(
         dist_world.chain_program, DIST_RANKS,
         {"chain": [(dist_world.collectives_program, coll_job),
-                   (dist_world.mesh_sgd_program, mesh_job)]},
+                   (dist_world.mesh_sgd_program, mesh_job),
+                   (dist_world.mesh_sgd_program, moe_job)]},
         str(work), backend="gloo", device="cuda", threads=2)
     world_s = time.perf_counter() - t0
     coll = [r[0] for r in res]
     mesh = [r[1] for r in res]
+    moe = mesh_moe_gates(card, [r[2] for r in res], single_moe, work)
     # -- [dist-collectives] ---------------------------------------------------
     for c in coll:
         bad = [k for k in ("sent_equals_plain", "kernel_equals_plain",
@@ -3669,7 +3880,8 @@ def phase_dist(card: str) -> dict:
     shape = InputShape("mesh-dist", MESH_SEQ, MESH_BATCH, "train")
     dmesh = Mesh(*MESH_DIST)
     for runs, opt in ((sgd_runs, "sgd"), (ada_runs, "adagrad")):
-        dr = run_dryrun(ARCH, shape, mesh=dmesh, optimizer_name=opt)
+        dr = run_dryrun(ARCH, shape, mesh=dmesh, optimizer_name=opt,
+                        remat=False)
         for r in runs:
             if r["stored_bytes"] != dr["memory"]["state_bytes"] or any(
                     w != dr["collectives"] for w in r["wire_bytes"]):
@@ -3705,6 +3917,8 @@ def phase_dist(card: str) -> dict:
     sgd_ms = [x for r in sgd_runs for x in r["host_ms"][1:]]
     comm = [c / h for r in sgd_runs for c, h in
             zip(r["comm_ms"][1:], r["host_ms"][1:])]
+    gat_ms = [x for r in sgd_runs for x in r["gather_ms"][1:]]
+    act_ms = [x for r in sgd_runs for x in r["act_ms"][1:]]
     ada_ms = [x for r in ada_runs for x in r["host_ms"][1:]]
     peak = [r["peak_mem_bytes"] / 2**30 for r in sgd_runs + ada_runs]
     print(f"[mesh-dist] {ARCH} full width ({cfg.n_params()} parameters, "
@@ -3726,12 +3940,16 @@ def phase_dist(card: str) -> dict:
     print(f"[mesh-dist] ms per step (host clock ending in the metrics' host "
           f"copy, steps after the first, all ranks): AdaGrad lr 0.003 "
           f"{spread(ada_ms)}; sgd with a sync before each collective "
-          f"{spread(sgd_ms)}, the collectives' share {spread(comm)}; peak "
-          f"memory per rank {min(peak):.2f}-{max(peak):.2f} GiB; world "
-          f"{world_s:.1f} s, single-device gate {single_s:.1f} s (gloo "
-          f"through host memory on one card: no NCCL or NVLink figure) "
-          f"| {card}")
+          f"{spread(sgd_ms)}, the collectives' share {spread(comm)}, of "
+          f"which the gathers {spread(gat_ms)} ms and the activation "
+          f"all-reduces (compute split over model) {spread(act_ms)} ms; "
+          f"peak memory per rank {min(peak):.2f}-{max(peak):.2f} GiB; world "
+          f"{world_s:.1f} s (with [mesh-moe]'s runs), single-device gate "
+          f"{single_s:.1f} s, [mesh-moe]'s single-device engines "
+          f"{single_moe['seconds']:.1f} s (gloo through host memory on one "
+          f"card: no NCCL or NVLink figure) | {card}")
     out = {"collectives": coll, "mesh_dist": mesh, "world_s": world_s,
+           "mesh_moe": moe, "mesh_moe_single_s": single_moe["seconds"],
            "loss_rel": loss_rel, "param_rel": p_rel, "update_rel": u_rel,
            "update_size": u_size, "update15_rel": u15_rel,
            "block_topk_launches": sum(c["launches"]["block_topk"]
@@ -4443,8 +4661,8 @@ def main() -> int:
           + f"); slice 11's "
           f"{sum(v['seconds'] for v in slice11.values()):.1f} s ("
           + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice11.items())
-          + f"); slice 12's mesh-train {mesh['seconds']:.1f} s; slice 13's "
-          f"dist {dist['seconds']:.1f} s")
+          + f"); slice 12's mesh-train {mesh['seconds']:.1f} s; slices 13 "
+          f"and 14's dist (with [mesh-moe]) {dist['seconds']:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,19 +35,20 @@ from repro_torch.optim.base import leaf_map
 
 PyTree = Any
 Axes = Union[str, Sequence[str]]
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def all_reduce(x: torch.Tensor, axes: Axes,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of this rank's group on ``axes``
-    (a new tensor)."""
+               mesh: Optional[Mesh] = None, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``x`` over the ranks of this
+    rank's group on ``axes`` (a new tensor)."""
     mesh = mesh or current_mesh()
     y = x.clone(memory_format=torch.contiguous_format)
     group = mesh.group(axes_of(axes))
     if group is None:
         return y
     t0 = COUNTER.start(y)
-    dist.all_reduce(y, group=group)
+    dist.all_reduce(y, op=_OPS[op], group=group)
     COUNTER.add("all-reduce", wire_bytes("all-reduce", y.shape, y.dtype), t0)
     return y
 

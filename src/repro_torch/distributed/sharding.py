@@ -22,7 +22,8 @@ placements compare equal (``P(("data",)) == P("data")``), as jax 0.9's
 
 How the port uses a spec: ``local_shape`` / ``local_slice`` give a
 rank's shard; ``distributed/sharded_step.py`` stores the shards and
-gathers them around the step. The spec trees follow ``tree_paths``
+gathers them around the step, a leaf whose compute splits over
+``model`` over its FSDP axes only (``tensor_parallel.split_dim``). The spec trees follow ``tree_paths``
 order, which is ``jax.tree.leaves`` order.
 """
 from __future__ import annotations

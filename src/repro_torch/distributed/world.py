@@ -16,13 +16,18 @@ on the card (gloo over CUDA tensors, or NCCL with one card per rank).
   - ``mesh_sgd_program``: ``ElasticMeshSGD`` with ``in_shardings`` /
     ``out_shardings`` over a mesh, under a churn schedule: every step's
     metrics, wire bytes by op and host ms; the stored bytes; peak memory;
-    the gathered params (from rank 0, to a file).
+    the gathered params (from rank 0, to a file);
+  - ``tensor_parallel_program``: the functions of
+    ``distributed/tensor_parallel.py`` and the split MLP and attention on
+    each rank's parts of full tensors over a (model world) mesh, with
+    their gradients.
 
 Ranks on one card share it (gloo copies each collective's bytes through
 host memory); their times are no NCCL or NVLink figures.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from pathlib import Path
@@ -35,7 +40,7 @@ import torch.multiprocessing as mp
 from repro_torch.configs import get_config
 from repro_torch.core.flatbuf import tree_leaves, tree_map
 from repro_torch.core.mesh_engine import ElasticMeshSGD
-from repro_torch.distributed import comm_analysis
+from repro_torch.distributed import comm_analysis, tensor_parallel
 from repro_torch.distributed.activation_sharding import activation_sharding
 from repro_torch.distributed.collectives import (
     block_topk_sparsify, compressed_reduce, hierarchical_weighted_reduce,
@@ -47,6 +52,8 @@ from repro_torch.kernels.runtime import (COUNTERS, reset_counters,
 from repro_torch.kernels.topk_compress.ops import block_topk
 from repro_torch.kernels.topk_compress.ref import block_topk_flat_ref
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
 from repro_torch.models import transformer as tf
 from repro_torch.optim import get_optimizer
 from repro_torch.train.step import build_train_step, make_train_state
@@ -283,7 +290,11 @@ def mesh_sgd_program(rank: int, world: int, job: Dict[str, Any],
     worker)]}), ``params`` (a ``torch.save``d tree, or None for
     ``init_params`` from ``seed``), ``timed`` (synchronize before each
     collective and sum its host time), ``gather`` (a path: rank 0 saves
-    the gathered params there; every rank gathers, it is collective)."""
+    the gathered params there; every rank gathers, it is collective),
+    ``n_layers`` (a depth cut), ``moe_impl`` (``"einsum"`` or
+    ``"sort"``), ``remat`` (default False). Per step a run reports the
+    wire bytes by op, the host ms, the collectives' host ms, and apart
+    the gathers' and the activation collectives' (``tensor_parallel``)."""
     mesh = Mesh(*job["mesh"])
     results = []
     with mesh:
@@ -298,6 +309,11 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
     cfg = get_config(run["arch"])
     if run.get("reduced"):
         cfg = cfg.reduced()
+    if run.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=run["n_layers"])
+    if run.get("moe_impl"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl=run["moe_impl"]))
     B = run["batch"]
     opt = get_optimizer(run["optimizer"][0], **run["optimizer"][1])
     if run.get("params"):
@@ -309,7 +325,8 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
     sh = to_shardings(param_specs(state, cfg, mesh, "train"), mesh)
     with activation_sharding(batch_axis(batch_spec(mesh, B))):
         eng = ElasticMeshSGD(
-            train_step=build_train_step(cfg, opt, remat=False),
+            train_step=build_train_step(cfg, opt,
+                                        remat=run.get("remat", False)),
             state=state, n_workers=run["n_workers"], global_batch=B,
             jit_kwargs=dict(in_shardings=(sh, None),
                             out_shardings=(sh, None)))
@@ -321,7 +338,7 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
             torch.cuda.reset_peak_memory_stats(dev)
         stream = _batches(run, cfg, dev)
         comm_analysis.COUNTER.sync = run.get("timed", False)
-        host_ms, wire, comm_ms = [], [], []
+        host_ms, wire, comm_ms, gather_ms, act_ms = [], [], [], [], []
         reset_counters()
         try:
             for i in range(run["steps"]):
@@ -329,17 +346,21 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
                     getattr(eng, kind)(w)
                 b = next(stream)
                 comm_analysis.reset()
+                tensor_parallel.reset_activation()
                 _sync(dev)
                 t = time.perf_counter()
                 eng.step(b)                 # the metrics' floats sync
                 host_ms.append(1e3 * (time.perf_counter() - t))
                 wire.append(comm_analysis.collective_bytes())
-                comm_ms.append(
-                    1e3 * sum(comm_analysis.COUNTER.seconds.values()))
+                seconds = comm_analysis.COUNTER.seconds
+                comm_ms.append(1e3 * sum(seconds.values()))
+                gather_ms.append(1e3 * seconds.get("all-gather", 0.0))
+                act_ms.append(1e3 * tensor_parallel.ACTIVATION["seconds"])
         finally:
             comm_analysis.COUNTER.sync = False
         out = {"history": eng.history, "host_ms": host_ms,
                "wire_bytes": wire, "comm_ms": comm_ms,
+               "gather_ms": gather_ms, "act_ms": act_ms,
                "stored_bytes": stored,
                "launches": {k: c.count for k, c in COUNTERS.items()},
                "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
@@ -352,6 +373,94 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
     del eng
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over (model world)
+# ---------------------------------------------------------------------------
+def _local_part(name: str, w: torch.Tensor, world: int, index: int,
+                kv_split: bool = True) -> torch.Tensor:
+    """Rank ``index``'s part of a parameter ``name`` split over ``model``
+    (``tensor_parallel.TP_DIM``); replicated KV heads unless
+    ``kv_split``, and every other leaf, whole."""
+    rel = tensor_parallel.TP_DIM.get(name)
+    if rel is None or (name in tensor_parallel.KV_REPLICATED
+                       and not kv_split):
+        return w.clone()
+    dim = w.dim() + rel
+    n = w.shape[dim] // world
+    return w.narrow(dim, index * n, n).clone()
+
+
+def _tp_case(kind: str, c: Dict[str, Any], world: int, index: int
+             ) -> Dict[str, Any]:
+    """One case on this rank: (output, gradients of ``sum(out * g)``
+    with respect to the inputs and the rank's parameter parts)."""
+    leaf = {}
+
+    def grad_of(name, t):
+        leaf[name] = t.detach().clone().requires_grad_(True)
+        return leaf[name]
+    if kind == "copy_reduce":
+        c_r = float(index + 1)
+        y = tensor_parallel.reduce_from_model(grad_of("a", c["x"]) * c_r)
+        z = tensor_parallel.copy_to_model(grad_of("b", c["x"])) * c_r
+        out = torch.stack([y, z])
+    elif kind == "embed":
+        table = _local_part("embed", c["table"], world, index)
+        out = layers.embed(grad_of("table", table), c["tokens"], True)
+    elif kind == "xent":
+        n = c["logits"].shape[-1] // world
+        z = c["logits"].narrow(-1, index * n, n)
+        nll, count = layers.softmax_xent(grad_of("logits", z), c["labels"],
+                                         c.get("mask"))
+        out = torch.stack([nll, count])
+    elif kind == "mlp":
+        p = {k: grad_of(k, _local_part(k, w, world, index))
+             for k, w in c["p"].items()}
+        out = layers.mlp(p, grad_of("x", c["x"]), c["act"], True)
+    else:
+        p = {}
+        for k, w in c["p"].items():
+            if isinstance(w, dict):
+                p[k] = {"scale": grad_of(k, w["scale"])}
+            else:
+                p[k] = grad_of(k, _local_part(k, w, world, index,
+                                              c["kv_split"]))
+        out = attn_mod.attention(p, grad_of("x", c["x"]), c["positions"],
+                                 causal=True, split=True,
+                                 kv_split=c["kv_split"])
+    grads = torch.autograd.grad((out * c["g"]).sum(), list(leaf.values()),
+                                allow_unused=True)
+    return {"out": out.detach(),
+            "grads": {k: g for k, g in zip(leaf, grads) if g is not None}}
+
+
+def _tensors_to(tree, dev: torch.device):
+    """A nested dict with its tensors on ``dev`` (other values as they
+    are)."""
+    if isinstance(tree, dict):
+        return {k: _tensors_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def tensor_parallel_program(rank: int, world: int, job: Dict[str, Any],
+                            dev: torch.device) -> Dict[str, Any]:
+    """``job["cases"]`` [(kind, inputs)] on mesh (model ``world``),
+    inside ``sharded_compute`` with the head split (so
+    ``layers.softmax_xent`` hands off to ``vocab_parallel_xent``): each
+    case's output and gradients on this rank (``_tp_case``), and the
+    activation collectives' count."""
+    mesh = Mesh((world,), ("model",))
+    out: Dict[str, Any] = {"rank": rank, "cases": []}
+    with mesh, tensor_parallel.sharded_compute(mesh, (), (), head=True):
+        tensor_parallel.reset_activation()
+        for kind, c in job["cases"]:
+            res = _tp_case(kind, _tensors_to(c, dev), world,
+                           mesh.chunk_index("model", rank))
+            out["cases"].append(_tensors_to(res, torch.device("cpu")))
+        out["calls"] = tensor_parallel.ACTIVATION["calls"]
     return out
 
 

@@ -17,15 +17,18 @@ For the requested architecture / input shape / mesh this script:
          cache) and outputs (the new state and four f32 metrics; or the
          last-token f32 logits and the cache), per rank;
        - ``collective_bytes_per_chip`` / ``collectives``: one train
-         step of ``distributed/sharded_step.py``, reckoned by
-         ``step_collectives`` with the same ``wire_bytes`` its calls
-         count; prefill and decode carry the gathers of the
-         ``serve``-mode shards;
+         step of ``distributed/sharded_step.py`` (``remat`` unless
+         ``--no-remat``), reckoned by ``step_collectives`` from the
+         specs and the activation shape (B / batch split, S, d) with the
+         same ``wire_bytes`` its calls count; prefill and decode carry
+         the gathers of the ``serve``-mode shards;
        - ``model_flops_per_chip``, ``n_params`` / ``n_active_params``:
          the reference's formulas (6 or 2 x active params x tokens, over
-         the mesh's ranks); ``flops_per_chip``: the same work over the
-         ranks the batch is split over, since the port's step replicates
-         compute over ``model`` (ROADMAP A10c);
+         the mesh's ranks); ``flops_per_chip``: a train step's work over
+         the ranks the batch is split over, where each leaf's share is
+         divided by the ``model`` ranks its block splits over
+         (``train_flops_share``); a serving step's is replicated over
+         ``model``, as the port serves on one device;
        - ``roofline``: ``roofline_terms`` with the H100 constants of
          ``launch/mesh.py``, the memory term from the argument bytes;
   4. emits one JSON line.
@@ -34,9 +37,10 @@ No counterpart, so left out: XLA's ``memory_analysis`` ``temp_bytes``
 and generated code, ``raw_scan_counted`` and the cost probes, the HLO op
 counts, and ``lower_s`` / ``compile_s`` / ``probe_s``. Nor do the
 reference's ``remat``, ``donate`` and ``probe`` switches select anything
-here: its ``--no-remat``, ``--no-donate`` and ``--no-probe`` flags parse,
-in one group that is ignored, so its command lines run unchanged. Skips
-are the reference's ``supports``.
+here but ``remat``: its ``--no-donate`` and ``--no-probe`` flags parse,
+in one group that is ignored, so its command lines run unchanged;
+``--no-remat`` reckons the collectives of a step without the recompute.
+Skips are the reference's ``supports``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
@@ -57,11 +61,14 @@ from repro_torch.configs import ArchConfig, get_config, get_shape
 from repro_torch.configs.shapes import SHAPE_REGISTRY, InputShape
 from repro_torch.core.flatbuf import tree_map, tree_paths
 from repro_torch.distributed.comm_analysis import roofline_terms
-from repro_torch.distributed.sharded_step import step_collectives
+from repro_torch.distributed.sharded_step import (ComputePlan, compute_plan,
+                                                  step_collectives)
 from repro_torch.distributed.sharding import (NamedSharding, P, batch_axis,
                                               batch_spec, cache_specs,
                                               local_shape, param_specs,
                                               parse_layout)
+from repro_torch.distributed.tensor_parallel import (KV_REPLICATED,
+                                                     kv_heads_read)
 from repro_torch.launch.mesh import (HBM_BW, ICI_BW, PEAK_FLOPS_BF16, Mesh,
                                      make_production_mesh)
 from repro_torch.launch.specs import effective_config, input_specs, supports
@@ -129,14 +136,42 @@ def _batch_bytes(batch, mesh: Mesh, B: int, layout) -> int:
     return local_bytes(batch, tree_map(lambda s: s.spec, sh), mesh)
 
 
+def train_flops_share(params, plan: ComputePlan, cfg, m: int) -> float:
+    """The share of a train step's model FLOPs that one rank of a batch
+    group computes: each leaf's active parameters (an expert leaf's
+    times k / E) weighted by 1 / m where its block splits over ``model``,
+    by the share of KV heads the rank's query heads read for a
+    replicated KV projection in a split attention, else 1."""
+    moe = cfg.moe
+    num = den = 0.0
+    for path, leaf in tree_paths(params):
+        a = float(leaf.numel())
+        if moe is not None and "moe" in path[:-1] and path[-1] != "router":
+            a *= moe.experts_per_token / moe.n_experts
+        share = 1.0
+        if path in plan.split:
+            share = 1.0 / m
+        elif path in plan.partial:
+            share = 1.0 / m
+            if path[-1] in KV_REPLICATED:
+                heads, _ = kv_heads_read(0, cfg.n_heads // m,
+                                         cfg.n_heads // cfg.n_kv_heads)
+                share = len(heads) / cfg.n_kv_heads
+        num += share * a
+        den += a
+    return num / den
+
+
 def run_dryrun(arch: Union[str, ArchConfig], shape: Union[str, InputShape], *,
                multi_pod: bool = False, mesh: Mesh = None,
                optimizer_name: str = "adagrad",
-               layout: str = "baseline") -> Dict[str, Any]:
+               layout: str = "baseline", remat: bool = True
+               ) -> Dict[str, Any]:
     """One (arch, shape, mesh)'s JSON record (module docstring). ``arch``
     is a registered name or an ``ArchConfig`` (a ``.reduced()`` one, say),
     ``shape`` a registered shape's name or an ``InputShape``;
-    ``optimizer_name`` any of ``optim.get_optimizer``'s."""
+    ``optimizer_name`` any of ``optim.get_optimizer``'s; ``remat``: the
+    train step recomputes each block in backward."""
     lay = parse_layout(layout)
     cfg0 = get_config(arch) if isinstance(arch, str) else arch
     arch = cfg0.name
@@ -155,7 +190,7 @@ def run_dryrun(arch: Union[str, ArchConfig], shape: Union[str, InputShape], *,
     split = mesh.axes_size(bentry)
     params_abs = tf.abstract_params(cfg)
     memory: Dict[str, int] = {}
-    refused = None
+    share = 1.0
     if shape.kind == "train":
         opt = get_optimizer(optimizer_name)
         state_abs = make_train_state(params_abs, opt)
@@ -164,10 +199,13 @@ def run_dryrun(arch: Union[str, ArchConfig], shape: Union[str, InputShape], *,
         memory["argument_bytes"] = memory["state_bytes"] + _batch_bytes(
             specs["batch"], mesh, B, lay)
         memory["output_bytes"] = memory["state_bytes"] + METRICS_BYTES
-        coll = step_collectives(params_abs, st_specs["params"], mesh, bentry)
-        if cfg.moe is not None and split > 1:
-            refused = (f"MoE under a batch split over {split} ranks "
-                       f"(ROADMAP A10c)")
+        coll = step_collectives(params_abs, st_specs["params"], mesh, bentry,
+                                act=(cfg, B // split, shape.seq_len),
+                                remat=remat)
+        plan = compute_plan([(p, x.dim()) for p, x in tree_paths(
+            params_abs)], st_specs["params"], mesh)
+        share = train_flops_share(params_abs, plan, cfg,
+                                  mesh.shape.get("model", 1))
     else:
         p_specs = param_specs(params_abs, cfg, mesh, "serve", lay)
         memory["param_bytes"] = local_bytes(params_abs, p_specs, mesh)
@@ -193,7 +231,7 @@ def run_dryrun(arch: Union[str, ArchConfig], shape: Union[str, InputShape], *,
     mult = 6 if shape.kind == "train" else 2
     n_active = cfg.n_active_params()
     model_flops_global = mult * n_active * tokens
-    flops = model_flops_global / split
+    flops = model_flops_global / split * share
     rl = roofline_terms(flops=flops, hbm_bytes=memory["argument_bytes"],
                         coll_bytes=coll_total, n_chips=n_chips,
                         peak_flops=PEAK_FLOPS_BF16, hbm_bw=HBM_BW,
@@ -213,8 +251,8 @@ def run_dryrun(arch: Union[str, ArchConfig], shape: Union[str, InputShape], *,
         "useful_flops_ratio": model_flops_global / n_chips / flops,
         "batch_split": split, "layout": layout, "skipped": False,
     }
-    if refused:
-        out["refused"] = refused
+    if shape.kind == "train":
+        out["remat"] = remat
     return out
 
 
@@ -228,9 +266,11 @@ def main(argv=None) -> int:
                     help="override mesh dims, e.g. '2,4' or '2,2,2'")
     ap.add_argument("--optimizer", default="adagrad",
                     choices=["adagrad", "adam", "sgd"])
+    ap.add_argument("--no-remat", action="store_true",
+                    help="a train step without the recompute")
     ignored = ap.add_argument_group(
         "ignored", "the reference's switches; they select nothing here")
-    for flag in ("--no-remat", "--no-donate", "--no-probe"):
+    for flag in ("--no-donate", "--no-probe"):
         ignored.add_argument(flag, action="store_true")
     ap.add_argument("--layout", default="baseline",
                     help="comma list of layout features: fsdp_remap,"
@@ -239,7 +279,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     res = run_dryrun(args.arch, args.shape, mesh=build_mesh(args),
-                     optimizer_name=args.optimizer, layout=args.layout)
+                     optimizer_name=args.optimizer, layout=args.layout,
+                     remat=not args.no_remat)
     line = json.dumps(res)
     print(line)
     if args.json:

@@ -28,6 +28,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.layers import (Init, apply_rope, as_dtype, f32,
                                        rmsnorm, rope_tables, rotate)
@@ -82,11 +83,33 @@ def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor):
     return q, k, v
 
 
-def _out_proj(p: Params, o: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd", o, wo)`` as one matrix product."""
+def _local_kv(p: Params) -> Params:
+    """A split attention's weights with replicated KV heads narrowed to
+    the heads its local query heads read (``tp.local_kv_heads``): a
+    slice of consecutive heads each read by a group of local heads, or
+    one KV head per local query head."""
+    heads, grouped = tp.local_kv_heads(p["wq"].shape[-2], p["wk"].shape[-2])
+    out = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name not in p:
+            continue
+        w = p[name]
+        out[name] = w.narrow(-2, heads[0], len(heads)) if grouped else \
+            w.index_select(w.dim() - 2, torch.tensor(heads,
+                                                     device=w.device))
+    return out
+
+
+def _out_proj(p: Params, o: torch.Tensor, split: bool = False
+              ) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", o, wo)`` as one matrix product;
+    ``split``: the local heads' partial, summed over ``model`` before
+    the bias."""
     B, S, H, hd = o.shape
     wo = p["wo"]
     out = (o.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(B, S, -1)
+    if split:
+        out = tp.reduce_from_model(out)
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -133,14 +156,27 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
               causal: bool = True, window: int = 0, use_rope: bool = True,
               rope_theta: float = 10000.0,
               xkv: Optional[torch.Tensor] = None,
-              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_positions: Optional[torch.Tensor] = None,
+              split: bool = False, kv_split: bool = False) -> torch.Tensor:
     """Attention over the whole sequence x (B,S,d) at ``positions`` (S,)
     — causal and/or sliding-window — on plain tensor ops, as the JAX
     training forward (autograd differentiates it). Self-attention, or
     cross-attention over ``xkv`` (B,T,d) at ``kv_positions`` (T,) (the
-    audio decoder over the encoder's states)."""
-    xkv = x if xkv is None else xkv
+    audio decoder over the encoder's states).
+
+    ``split`` (``distributed/tensor_parallel.py``): the query heads of
+    ``wq`` / ``bq`` / ``wo`` are this rank's; so are the KV heads where
+    ``kv_split``, else they are replicated and narrowed to those the
+    local query heads read. The inputs go through ``copy_to_model`` and
+    the output projection's partial through ``reduce_from_model``."""
     kv_positions = positions if kv_positions is None else kv_positions
+    if split:
+        if xkv is not None:
+            xkv = tp.copy_to_model(xkv)
+        x = tp.copy_to_model(x)
+        if not kv_split:
+            p = _local_kv(p)
+    xkv = x if xkv is None else xkv
     q, k, v = _project_qkv(p, x, xkv)
     if use_rope:
         cos, sin = rope_tables(positions, q.shape[-1], rope_theta)
@@ -150,7 +186,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
         k = rotate(k, cos, sin)
     mask = make_mask(positions, kv_positions, causal, window) \
         if (causal or window) else None
-    return _out_proj(p, grouped_attend(q, k, v, mask))
+    return _out_proj(p, grouped_attend(q, k, v, mask), split)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.counter_hash import chain_key
+from repro_torch.distributed import tensor_parallel as tp
 
 Params = Mapping[str, Any]
 
@@ -188,18 +189,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
-def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, act: str,
+        split: bool = False) -> torch.Tensor:
+    """The gated (``w_gate``) or plain MLP. ``split``: the FF dim holds
+    this rank's part (``distributed/tensor_parallel.py``): ``w_gate`` /
+    ``w_up`` column-parallel, ``w_down`` row-parallel, ``b_down`` added
+    once after the sum."""
+    if split:
+        x = tp.copy_to_model(x)
     if "w_gate" in p:
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
         h = (F.silu(g) if act == "silu"
              else F.gelu(g, approximate="tanh")) * u
-        return h @ p["w_down"]
+        out = h @ p["w_down"]
+        return tp.reduce_from_model(out) if split else out
     h = x @ p["w_up"]
     if "b_up" in p:
         h = h + p["b_up"]
     h = F.gelu(h, approximate="tanh")
     out = h @ p["w_down"]
+    if split:
+        out = tp.reduce_from_model(out)
     if "b_down" in p:
         out = out + p["b_down"]
     return out
@@ -208,16 +219,25 @@ def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          split: bool = False) -> torch.Tensor:
     """``table[tokens]``. ``F.embedding``'s backward sums each row's
     repeated tokens in a fixed order; plain indexing's accumulates them
     in a thread-dependent order, so a training step would not repeat
-    bit for bit."""
+    bit for bit. ``split``: the table holds this rank's vocab rows
+    (``tensor_parallel.vocab_parallel_embed``)."""
+    if split:
+        return tp.vocab_parallel_embed(table, tokens)
     return F.embedding(tokens.long(), table)
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """table: (V, d), x: (..., d) -> logits (..., V), computed in f32."""
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            split: bool = False) -> torch.Tensor:
+    """table: (V, d), x: (..., d) -> logits (..., V), computed in f32.
+    ``split``: the table holds this rank's vocab rows, and so do the
+    logits' columns."""
+    if split:
+        x = tp.copy_to_model(x)
     return f32(x) @ f32(table).t()
 
 
@@ -229,8 +249,12 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token cross-entropy in f32. Returns (sum_loss, n_tokens) so callers
     can do the paper's weighted reduce (sum over workers / global count).
-    The label pick is a gather: the port has no vocab sharding, which is
-    why the JAX package contracts with a one-hot instead."""
+    The label pick is a gather (the JAX package contracts with a
+    one-hot, which GSPMD splits over the vocab); where the logits hold
+    this rank's vocab columns, ``tensor_parallel.vocab_parallel_xent``
+    takes the loss."""
+    if tp.head_split():
+        return tp.vocab_parallel_xent(logits, labels, mask)
     logits = f32(logits)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

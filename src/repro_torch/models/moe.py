@@ -13,6 +13,16 @@ picks are distinct experts), so they are exact in any dtype and any
 contraction order; the drop set is a function of the picks alone. The
 router's top-k breaks ties by the lower expert index, as
 ``jax.lax.top_k`` does (``torch.topk`` promises no order).
+
+Inside a sharded step (``distributed/tensor_parallel.py``) the experts
+are split over ``model``: the router and the dispatch / combine tensors
+are computed whole on every rank, each rank runs its ``E/m`` experts
+(its slice of the E axis), and the partial outputs are summed over
+``model``; the gates go through ``copy_to_model``, so the router gets
+its whole gradient on every rank. Under a batch split the load-balance
+loss is global over the batch axes (``tensor_parallel.global_aux``).
+Capacity is per row, so the drop set never depends on another rank's
+rows.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import Init, f32
 
 Params = Dict[str, Any]
@@ -60,8 +71,11 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance loss over the top-1 assignment
     E = cfg.n_experts
+    top1 = F.one_hot(idx[..., 0], E).float()
+    if tp.batch_split():
+        return gates, idx, tp.global_aux(probs, top1)
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    ce = top1.mean(dim=(0, 1))
     return gates, idx, E * torch.sum(me * ce)
 
 
@@ -98,21 +112,29 @@ def expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"]).reshape(E, B, C, d).transpose(0, 1)
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dispatch-combine MoE layer. x: (B,S,d). Returns (y, aux)."""
+def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig,
+            split: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch-combine MoE layer. x: (B,S,d). Returns (y, aux).
+    ``split``: ``p``'s experts are this rank's (module docstring)."""
     dt = x.dtype
     gates, idx, aux = route(p["router"], x, cfg)
+    if split:
+        gates, x = tp.copy_to_model(gates), tp.copy_to_model(x)
     disp, comb = dispatch_combine(x, gates, idx, cfg,
                                   capacity(x.shape[1], cfg))
+    if split:
+        e0, e1 = tp.local_experts(p["w_up"].shape[-3])
+        disp, comb = disp[:, :, e0:e1], comb[:, :, e0:e1]
     xe = torch.einsum("bsec,bsd->becd", disp.to(dt), x)
     ye = expert_ffn(p, xe)
     y = torch.einsum("bsec,becd->bsd", comb.to(dt), ye)
+    if split:
+        y = tp.reduce_from_model(y)
     return y.to(dt), aux
 
 
-def moe_ffn_sorted(p: Params, x: torch.Tensor, cfg: MoEConfig
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_sorted(p: Params, x: torch.Tensor, cfg: MoEConfig,
+                   split: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based dispatch with the same drop set as ``moe_ffn``: each
     row's choices are stably sorted by expert (a stable sort keeps the
     arrival order the einsum's cumsum counts) and scattered into (E, C)
@@ -121,11 +143,15 @@ def moe_ffn_sorted(p: Params, x: torch.Tensor, cfg: MoEConfig
     not matter. The combine gathers each token's k weighted outputs
     back into choice order and sums them: the reference scatter-adds
     the same terms into zeros, which for k <= 2 is the same sum in
-    either order, and this gather-sum stays deterministic for any k."""
+    either order, and this gather-sum stays deterministic for any k.
+    ``split``: ``p``'s experts are this rank's; it runs their buckets
+    and reads zeros for the other experts' choices."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     dt = x.dtype
     gates, idx, aux = route(p["router"], x, cfg)
+    if split:
+        gates, x = tp.copy_to_model(gates), tp.copy_to_model(x)
     cap = capacity(S, cfg)
 
     eidx = idx.reshape(B, S * k)                        # expert per choice
@@ -146,16 +172,23 @@ def moe_ffn_sorted(p: Params, x: torch.Tensor, cfg: MoEConfig
     rows = torch.arange(B, device=x.device)[:, None]
     buf[rows, slot] = xs
     xe = buf[:, :E * cap].reshape(B, E, cap, d)
-    ye = expert_ffn(p, xe).reshape(B, E * cap, d)
+    if split:
+        e0, e1 = tp.local_experts(p["w_up"].shape[-3])
+        xe = xe[:, e0:e1]
+        slot = slot - e0 * cap
+        valid = valid & (sorted_e >= e0) & (sorted_e < e1)
+    n = xe.shape[1] * cap
+    ye = expert_ffn(p, xe).reshape(B, n, d)
 
-    safe = slot.clamp(max=E * cap - 1)
+    safe = slot.clamp(0, n - 1)
     y_sorted = torch.gather(ye, 1, safe[..., None].expand(-1, -1, d))
     y_sorted = torch.where(valid[..., None], y_sorted,
                            torch.zeros((), dtype=dt, device=x.device))
     contrib = y_sorted * torch.gather(gat, 1, order)[..., None]
     back = torch.argsort(order, dim=1)                  # choice -> sorted
     y = torch.gather(contrib, 1, back[..., None].expand(-1, -1, d))
-    return y.reshape(B, S, k, d).sum(2), aux
+    y = y.reshape(B, S, k, d).sum(2)
+    return (tp.reduce_from_model(y) if split else y), aux
 
 
 def moe_ffn_dense_ref(p: Params, x: torch.Tensor, cfg: MoEConfig

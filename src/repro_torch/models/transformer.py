@@ -36,12 +36,14 @@ JAX package's limits; its engine serves dense and MoE only).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -247,7 +249,8 @@ def _embed_in(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """The token embeddings in the activation dtype; a VLM's are scaled
     by ``sqrt(d_model)`` rounded to that dtype (the Gemma convention)."""
     adt = dtype_of(cfg.activ_dtype)
-    x = as_dtype(embed(params["embed"], tokens), adt)
+    x = as_dtype(embed(params["embed"], tokens, tp.is_split(("embed",))),
+                 adt)
     if cfg.arch_type == "vlm":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=x.device)
     return x
@@ -262,42 +265,60 @@ def _with_prefix(x: torch.Tensor, prefix: Optional[torch.Tensor]
                                x.dtype), x], dim=1)
 
 
+def _heads(path: Tuple[str, ...]) -> Dict[str, bool]:
+    """``attention``'s split flags for the attention at ``path`` in the
+    parameter tree (both False outside a sharded step)."""
+    return {"split": tp.is_split(path + ("wq",)),
+            "kv_split": tp.is_split(path + ("wk",))}
+
+
 def _ffn(bp: Params, h: torch.Tensor, cfg: ArchConfig,
-         aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+         aux: Optional[List[torch.Tensor]] = None,
+         path: Tuple[str, ...] = ("blocks",)) -> torch.Tensor:
     """The block's second half: norm, then the dense MLP or the MoE layer
     (with the shared expert / dense residual); the MoE's load-balance
-    loss goes to ``aux`` when given."""
+    loss goes to ``aux`` when given. ``path``: the block's place in the
+    parameter tree, where a sharded step looks up which of its products
+    split over ``model``."""
     hh = apply_norm(bp["ln2"], h, cfg.norm_eps)
+
+    def dense(name, act):
+        return mlp(bp[name], hh, act, tp.is_split(path + (name, "w_up")))
     if "moe" not in bp:
-        return h + mlp(bp["mlp"], hh, cfg.mlp_act)
+        return h + dense("mlp", cfg.mlp_act)
     moe_fn = moe_mod.moe_ffn_sorted if cfg.moe.impl == "sort" \
         else moe_mod.moe_ffn
-    y, a = moe_fn(bp["moe"], hh, cfg.moe)
+    y, a = moe_fn(bp["moe"], hh, cfg.moe,
+                  tp.is_split(path + ("moe", "w_up")))
     if aux is not None:
         aux.append(a)
     if "shared" in bp:
-        y = y + mlp(bp["shared"], hh, "silu")
+        y = y + dense("shared", "silu")
     if "dense" in bp:
-        y = y + mlp(bp["dense"], hh, "silu")
+        y = y + dense("dense", "silu")
     return h + y
 
 
 def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The logits in f32 (a sharded step's: over this rank's vocab
+    columns where the table splits)."""
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return unembed(head, x)
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    return unembed(params[name], x, tp.is_split((name,)))
 
 
 # ---------------------------------------------------------------------------
 # Full forward (training path)
 # ---------------------------------------------------------------------------
 def apply_attn_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
-                     cfg: ArchConfig, *, causal: bool = True) -> torch.Tensor:
+                     cfg: ArchConfig, *, causal: bool = True,
+                     path: Tuple[str, ...] = ("blocks",)) -> torch.Tensor:
     h = apply_norm(bp["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(
         bp["attn"], h, positions, causal=causal, window=cfg.sliding_window,
-        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
-    return _ffn(bp, x, cfg)
+        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta,
+        **_heads(path + ("attn",)))
+    return _ffn(bp, x, cfg, path=path)
 
 
 def apply_moe_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -305,7 +326,8 @@ def apply_moe_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     h = apply_norm(bp["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(
         bp["attn"], h, positions, causal=True, window=cfg.sliding_window,
-        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta)
+        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta,
+        **_heads(("blocks", "attn")))
     aux: List[torch.Tensor] = []
     x = _ffn(bp, x, cfg, aux)
     return x, aux[0]
@@ -322,7 +344,8 @@ def _apply_super(sp: Params, x: torch.Tensor, positions: torch.Tensor,
     """A hybrid super-block: P-1 SSM blocks, then an attention block."""
     for j in range(cfg.hybrid_attn_period - 1):
         x = apply_ssm_block(layer(sp["ssm"], j), x, cfg)
-    return apply_attn_block(sp["attn"], x, positions, cfg)
+    return apply_attn_block(sp["attn"], x, positions, cfg,
+                            path=("super", "attn"))
 
 
 def _frames_in(cfg: ArchConfig, frames: Optional[torch.Tensor],
@@ -360,7 +383,8 @@ def _encode(params, cfg: ArchConfig, frames: Optional[torch.Tensor],
 
 def _encoder_block(bp: Params, x: torch.Tensor, fpos: torch.Tensor,
                    cfg: ArchConfig) -> torch.Tensor:
-    return apply_attn_block(bp, x, fpos, cfg, causal=False)
+    return apply_attn_block(bp, x, fpos, cfg, causal=False,
+                            path=("encoder",))
 
 
 def _cross_mlp(bp: Params, h: torch.Tensor, cfg: ArchConfig, attend
@@ -369,7 +393,8 @@ def _cross_mlp(bp: Params, h: torch.Tensor, cfg: ArchConfig, attend
     cross-attention ``attend(p, x)``, ``ln3`` and the MLP."""
     h = h + attend(bp["cross_attn"], apply_norm(bp["ln2"], h, cfg.norm_eps))
     hh = apply_norm(bp["ln3"], h, cfg.norm_eps)
-    return h + mlp(bp["mlp"], hh, cfg.mlp_act)
+    return h + mlp(bp["mlp"], hh, cfg.mlp_act,
+                   tp.is_split(("blocks", "mlp", "w_up")))
 
 
 def _decoder_block(bp: Params, h: torch.Tensor, positions: torch.Tensor,
@@ -379,10 +404,11 @@ def _decoder_block(bp: Params, h: torch.Tensor, positions: torch.Tensor,
     RoPE, cross-attention over ``enc``, MLP."""
     hh = apply_norm(bp["ln1"], h, cfg.norm_eps)
     h = h + attn_mod.attention(bp["self_attn"], hh, positions, causal=True,
-                               use_rope=False)
+                               use_rope=False,
+                               **_heads(("blocks", "self_attn")))
     return _cross_mlp(bp, h, cfg, lambda p, x: attn_mod.attention(
         p, x, positions, causal=False, use_rope=False, xkv=enc,
-        kv_positions=fpos))
+        kv_positions=fpos, **_heads(("blocks", "cross_attn"))))
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -414,10 +440,14 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run(fn, *args):
-        if remat:
+        if not remat:
+            return fn(*args)
+        # in a sharded step the recompute runs every collective of the
+        # block again, on every rank alike: none stops early
+        with (torch.utils.checkpoint.set_checkpoint_early_stop(False)
+              if tp.current() else contextlib.nullcontext()):
             return torch.utils.checkpoint.checkpoint(fn, *args,
                                                      use_reentrant=False)
-        return fn(*args)
 
     if cfg.arch_type == "audio":
         enc, fpos = _encode(params, cfg, frames, x.device, run)

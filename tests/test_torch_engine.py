@@ -259,7 +259,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         # the multi-device surface (A10b)
         f"repro_torch.distributed.{m}" for m in (
             "sharding", "activation_sharding", "collectives",
-            "comm_analysis", "sharded_step", "world")] + [
+            "comm_analysis", "sharded_step", "world",
+            # the compute split over `model` (A10c)
+            "tensor_parallel")] + [
         f"repro_torch.launch.{m}" for m in (
             "mesh", "specs", "dryrun", "dryrun_all")] + [
         "repro_torch.configs.shapes"]

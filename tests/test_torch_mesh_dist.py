@@ -4,19 +4,26 @@
 with ``to_shardings(param_specs(state, cfg, mesh, "train"), mesh)`` on a
 (data 2, model 2) and a (data 4, model 1) mesh, spawned through
 ``distributed/world.py`` (rendezvous through ``file://`` under the test's
-temporary directory).
+temporary directory). On (data 2, model 2) the step splits its compute
+over ``model`` (heads, FF, vocab, experts; ``tensor_parallel``).
 
-``qwen3-4b.reduced()``, B 8, S 16, 4 virtual workers, sgd lr 0.1: 3
-steps, leave(2), 2 steps, join(2), a step; then one step of one reduced
-config per non-MoE family on (data 2, model 2). Rank 0's metrics and the
-gathered params are held against the reference's single-device
-``ElasticMeshSGD`` on the same JAX-drawn weights (``params_from_jax``)
-and against the port's own single-device engine: losses within 1e-5
-relative, tokens and ``n_live`` exact, params within 1e-5 absolute
-(sgd). Every rank reports the same metrics; the dry-run's per-rank
-stored bytes and collective bytes for the mesh equal the run's
-counters, step by step.
+``qwen3-4b.reduced()`` (4 query heads, 1 KV head: replicated KV and the
+partial ``q_norm`` / ``k_norm`` gradients), B 8, S 16, 4 virtual
+workers, sgd lr 0.1: 3 steps, leave(2), 2 steps, join(2), a step; the
+same for ``llama4-scout-17b-a16e.reduced()`` (MoE under a split batch:
+the load-balance loss global over the batch axes, the experts split
+over ``model``) with each MoE impl on both meshes; then one step of one
+reduced config per other family, and one ``remat`` step, on (data 2,
+model 2). Rank 0's metrics and the gathered params are held against the
+reference's single-device ``ElasticMeshSGD`` on the same JAX-drawn
+weights (``params_from_jax``) and against the port's own single-device
+engine: losses within 1e-5 relative, tokens and ``n_live`` exact, aux
+within 1e-5, params within 1e-5 absolute (sgd). Every rank reports the
+same metrics; the dry-run's per-rank stored bytes and collective bytes
+for the mesh equal the run's counters, step by step.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -56,6 +63,8 @@ STEPS = 6
 # one reduced config per non-MoE family besides qwen3-4b's dense
 FAMILIES = ["mamba2-780m", "zamba2-7b", "paligemma-3b", "whisper-large-v3"]
 FB, FS = 4, 8
+MOE = "llama4-scout-17b-a16e"
+IMPLS = ["einsum", "sort"]
 
 
 def _batch(cfg, Bn, Sn, seed):
@@ -71,11 +80,19 @@ def _batch(cfg, Bn, Sn, seed):
     return out
 
 
-def _single(name, batches, steps, churn, Bn):
+def _impl(cfg, impl):
+    if impl is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            impl=impl))
+
+
+def _single(name, batches, steps, churn, Bn, impl=None):
     """The reference's and the port's single-device engines on the same
     JAX-drawn weights: (jax metrics, port metrics, jax params, port
-    params, the weights as the port's tree)."""
-    jcfg, tcfg = j_get_config(name).reduced(), get_config(name).reduced()
+    params, the weights as the port's tree). ``impl``: an MoE impl."""
+    jcfg = _impl(j_get_config(name).reduced(), impl)
+    tcfg = _impl(get_config(name).reduced(), impl)
     jp = jax.tree.map(np.asarray, j_tf.init_params(jax.random.PRNGKey(0),
                                                    jcfg))
     tp = params_from_jax(jp, tcfg, device="cpu")
@@ -134,6 +151,15 @@ def worlds(tmp_path_factory):
                "params": str(tmp / "qwen3-4b.pt"),
                "gather": str(tmp / "g22-qwen3-4b.pt")}]
     torch.save(single["qwen3-4b"][4], tmp / "qwen3-4b.pt")
+    mb = [_batch(get_config(MOE).reduced(), B, S, seed=3)]
+    moe_runs = []
+    for impl in IMPLS:
+        single[impl] = _single(MOE, mb, STEPS, CHURN, B, impl)
+        torch.save(single[impl][4], tmp / f"{impl}.pt")
+        moe_runs.append({"arch": MOE, "moe_impl": impl, "batches": mb,
+                         "batch": B, "seq": S, "steps": STEPS,
+                         "churn": CHURN, "params": str(tmp / f"{impl}.pt"),
+                         "gather": f"{impl}.pt"})
     for name in FAMILIES:
         fb = [_batch(get_config(name).reduced(), FB, FS, seed=7)]
         single[name] = _single(name, fb, 1, {}, FB)
@@ -141,17 +167,34 @@ def worlds(tmp_path_factory):
         runs22.append({"arch": name, "batches": fb, "batch": FB, "seq": FS,
                        "steps": 1, "params": str(tmp / f"{name}.pt"),
                        "gather": str(tmp / f"g22-{name}.pt")})
+    # one step under remat: each block's forward collectives run twice
+    runs22.append(dict(runs22[0], steps=1, churn={}, remat=True,
+                       gather=None))
     common = {"reduced": True, "n_workers": WORKERS,
               "optimizer": ("sgd", {"lr": 0.1})}
     out = {"single": single, "tmp": tmp, "batches": qb}
     out[(2, 2)] = spawn_world(mesh_sgd_program, 4, {
-        **common, "mesh": ((2, 2), ("data", "model")), "runs": runs22},
+        **common, "mesh": ((2, 2), ("data", "model")),
+        "runs": runs22 + [dict(r, gather=str(tmp / f"g22-{r['gather']}"))
+                          for r in moe_runs]},
         str(tmp / "w22"), device="cpu")
     out[(4, 1)] = spawn_world(mesh_sgd_program, 4, {
         **common, "mesh": ((4, 1), ("data", "model")),
-        "runs": [dict(runs22[0], gather=str(tmp / "g41-qwen3-4b.pt"))]},
+        "runs": [dict(runs22[0], gather=str(tmp / "g41-qwen3-4b.pt"))]
+        + [dict(r, gather=str(tmp / f"g41-{r['gather']}"))
+           for r in moe_runs]},
         str(tmp / "w41"), device="cpu")
     return out
+
+
+def _runs(dims):
+    """(name, MoE impl, rows, seq, remat) of each run of a mesh's world,
+    in order."""
+    out = [("qwen3-4b", None, B, S, False)]
+    if dims == (2, 2):
+        out += [(n, None, FB, FS, False) for n in FAMILIES]
+        out.append(("qwen3-4b", None, B, S, True))
+    return out + [(MOE, impl, B, S, False) for impl in IMPLS]
 
 
 @pytest.mark.parametrize("dims", [(2, 2), (4, 1)], ids=["data2-model2",
@@ -193,12 +236,10 @@ def test_dryrun_bytes_equal_the_run_counters(worlds, dims):
     equal ``run_dryrun``'s for the same config, mesh, shape and
     optimizer."""
     mesh = Mesh(dims, ("data", "model"))
-    for i, name in enumerate(["qwen3-4b"] + (FAMILIES if dims == (2, 2)
-                                             else [])):
-        Bn, Sn = (B, S) if i == 0 else (FB, FS)
-        dr = run_dryrun(get_config(name).reduced(),
+    for i, (name, impl, Bn, Sn, remat) in enumerate(_runs(dims)):
+        dr = run_dryrun(_impl(get_config(name).reduced(), impl),
                         InputShape("mesh-dist", Sn, Bn, "train"), mesh=mesh,
-                        optimizer_name="sgd")
+                        optimizer_name="sgd", remat=remat)
         for r in worlds[dims]:
             run = r["runs"][i]
             assert run["stored_bytes"] == dr["memory"]["state_bytes"], name
@@ -206,23 +247,41 @@ def test_dryrun_bytes_equal_the_run_counters(worlds, dims):
                 (name, run["wire_bytes"][0], dr["collectives"])
 
 
-def test_moe_under_a_split_batch_raises_naming_a10c():
-    cfg = get_config("llama4-scout-17b-a16e").reduced()
-    opt = sgd(lr=0.1)
-    state = make_train_state(init_params(cfg, device="cpu"), opt)
-    mesh = make_host_mesh(2, 2)
-    sh = to_shardings(param_specs(state, cfg, mesh, "train"), mesh)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        ElasticMeshSGD(train_step=build_train_step(cfg, opt), state=state,
-                       n_workers=4, global_batch=8,
-                       jit_kwargs=dict(in_shardings=(sh, None),
-                                       out_shardings=(sh, None)))
-    # a replicated batch (one row) is no split: the step is built
-    # (entering the mesh is the world's business; here it stops there)
-    with pytest.raises(RuntimeError, match="is not entered"):
-        ElasticMeshSGD(train_step=build_train_step(cfg, opt), state=state,
-                       n_workers=1, global_batch=1,
-                       jit_kwargs=dict(in_shardings=(sh, None)))
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("dims", [(2, 2), (4, 1)], ids=["data2-model2",
+                                                        "data4"])
+def test_moe_under_a_split_batch_matches_single_device(worlds, dims, impl):
+    """MoE under a batch split over more than one rank, under churn:
+    the load-balance loss is global over the batch axes (every rank
+    reports the reference's), the experts split over ``model`` on (data
+    2, model 2)."""
+    jm, tm, jp, tp, _ = worlds["single"][impl]
+    res = worlds[dims]
+    i = [r[:2] for r in _runs(dims)].index((MOE, impl))
+    hist = res[0]["runs"][i]["history"]
+    assert all(r["runs"][i]["history"] == hist for r in res)
+    assert [h["n_live"] for h in hist] == [4, 4, 4, 3, 3, 4]
+    assert all(h["aux_loss"] > 0 for h in hist)
+    _metrics_close(hist, jm)
+    _metrics_close(hist, tm)
+    tag = "g22" if dims == (2, 2) else "g41"
+    got = _port_flat(torch.load(worlds["tmp"] / f"{tag}-{impl}.pt"))
+    _params_close(got, _jax_flat(jp))
+    _params_close(got, _port_flat(tp))
+
+
+def test_remat_step_matches_and_runs_forward_collectives_twice(worlds):
+    """A ``remat`` step on (data 2, model 2): the first step's metrics of
+    the run without it, and (in the dry-run test) each block's forward
+    collectives counted twice."""
+    runs = worlds[(2, 2)][0]["runs"]
+    plain, remat = runs[0], runs[1 + len(FAMILIES)]
+    _metrics_close(remat["history"], plain["history"][:1])
+    extra = remat["wire_bytes"][0]["all-reduce"] \
+        - plain["wire_bytes"][0]["all-reduce"]
+    # qwen3-4b.reduced(): 2 layers x (attention + MLP) reduces of
+    # (B/2, S, d) f32, each 2B on the wire
+    assert extra == 2 * 2 * 2 * 4 * (B // 2) * S * 128
 
 
 def test_batch_shardings_choose_each_ranks_rows():

@@ -332,3 +332,59 @@ def test_dryrun_cli_reports_per_rank_bytes(tmp_path, capsys):
     assert set(r["collectives"]) == {"all-gather", "all-reduce"}
     assert (tmp_path / "d.jsonl").read_text().strip() == json.dumps(r)
 
+
+
+def test_dryrun_useful_flops_ratio_follows_the_split_blocks():
+    """At (data 16, model 16) a train step's work per rank is divided by
+    16 where its block splits over ``model``: near 1 for ``qwen3-4b``
+    (heads, FF and vocab split; its 8 replicated KV heads are read 1 per
+    rank); ``mlitb-lm-100m``'s 12 heads do not split over 16, so its
+    attention stays replicated (0.26), and over (data 16, model 4) all
+    of it splits; ``mamba2-780m``'s SSM blocks and its 50 280-row vocab
+    do not split, so its ratio stays 1/16."""
+    def ratio(arch, mesh=None):
+        return dryrun.run_dryrun(arch, "train_4k",
+                                 mesh=mesh)["useful_flops_ratio"]
+    assert ratio("qwen3-4b") > 0.9
+    assert ratio("mlitb-lm-100m", Mesh((16, 4), ("data", "model"))) > 0.9
+    assert 0.25 < ratio("mlitb-lm-100m") < 0.3
+    assert ratio("mamba2-780m") == pytest.approx(1 / 16, rel=1e-12)
+
+
+def test_dryrun_takes_moe_under_a_batch_split():
+    """MoE train rows report: the router's statistics all-reduce per
+    block, the experts split over ``model``."""
+    r = dryrun.run_dryrun("llama4-scout-17b-a16e", "train_4k",
+                          mesh=make_host_mesh(2, 2))
+    assert "refused" not in r and r["batch_split"] == 2
+    assert r["useful_flops_ratio"] > 0.5
+    plain = dryrun.run_dryrun("llama4-scout-17b-a16e", "train_4k",
+                              mesh=make_host_mesh(2, 2), remat=False)
+    # under remat each block's forward collectives run twice: per layer
+    # the attention's, the experts' and the shared expert's reduces of
+    # (B/2, S, d) and the router's statistics (2E + 1 entries), all f32,
+    # 2B each
+    cfg = get_config("llama4-scout-17b-a16e")
+    per_layer = 2 * 4 * (3 * 128 * 4096 * cfg.d_model
+                         + 2 * cfg.moe.n_experts + 1)
+    assert r["collectives"]["all-reduce"] - plain["collectives"][
+        "all-reduce"] == cfg.n_layers * per_layer
+    assert r["collectives"]["all-gather"] == plain["collectives"][
+        "all-gather"]
+
+
+def test_dryrun_gathers_split_leaves_over_data_only():
+    """``mlitb-lm-100m`` on (data 2, model 2), 8 x 256, sgd, no remat:
+    every leaf but the 19 200 norm entries splits over ``model`` for
+    compute, so a rank gathers half of each over ``data`` (PR 23's step
+    gathered every leaf whole: 603 979 776 bytes) and all-reduces half
+    of each gradient, plus 50 activation all-reduces of (4, 256, 768)
+    f32, the cross-entropy's three of (4, 256) and the (sum, count)."""
+    r = dryrun.run_dryrun(
+        "mlitb-lm-100m", t_shapes.InputShape("mesh-dist", 256, 8, "train"),
+        mesh=make_host_mesh(2, 2), optimizer_name="sgd", remat=False)
+    split = 100_682_496 - 19_200
+    assert r["collectives"]["all-gather"] == 4 * split // 2 == 201_326_592
+    grads = 2 * 4 * (split // 2 + 19_200)
+    acts = 50 * 2 * 4 * 4 * 256 * 768 + 3 * 2 * 4 * 4 * 256 + 2 * 4 * 2
+    assert r["collectives"]["all-reduce"] == grads + acts
