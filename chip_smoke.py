@@ -21,8 +21,8 @@ result):
    compressor BIT-EXACT
    (values, indices, residual) on the JAX kernel tests' cases batched
    over 3 workers, rows with NaN / all zeros / magnitude ties, and the
-   elastic-SGD demo's shape, and the CUDA route refusing block_w 2048
-   (the plain version takes it); then each kernel's time per launch (CUDA
+   elastic-SGD demo's shape, and rows past the warp path's 1024 (the
+   block path, staged and in place); then each kernel's time per launch (CUDA
    events; flash-decode's from CUDA graphs, its eager calls and the
    wrapper's host time per call beside it)
    beside its plain version's, a library yardstick's and the least time
@@ -245,6 +245,26 @@ result):
    peak memory per rank; reduced: losses and aux within 1e-5 of both
    single-device engines, the gathered params within 1e-5 (per leaf
    ``||a - b|| / ||b||``); no kernel launched;
+9q. mesh-ssm (slice 15) — first, in this process, the compute plan of
+   ``mamba2-780m`` at full width and depth (48 layers, f32) on (data 2,
+   model 2) must split ``out_proj`` and ``gate_norm`` of every Mamba2
+   block and mark its gathered leaves partial; the single-device engine
+   trains it (8 x 256, 3 sgd steps at lr 0.01) on the card, again from
+   params perturbed by 1e-7 (its later losses' noise floor: the f32
+   gradient at 48 layers is ill-conditioned), and with the depth cut to
+   12; ``zamba2-7b.reduced()`` (f32, mesh-moe's reduced schedule) on the
+   card and on the CPU; then in the same world the sharded engine runs
+   the three, each block computing its rank's heads: every rank the same
+   metrics; full depth: the first step's loss within 1e-5 relative (the
+   later ones printed beside the noise floor); 12 layers and reduced
+   zamba2: every loss within 1e-5 relative and the gathered params
+   within 1e-5 absolute of the single-device engines' (per-leaf
+   relative errors printed beside the engine's own from perturbed
+   params); stored and wire bytes per rank = ``run_dryrun``'s; ms per
+   step at full depth with the
+   gathers', the partial leaves' gradient all-reduces', the activation
+   all-reduces' and the norms' sums of squares' host ms apart, peak
+   memory per rank; no kernel launched;
 9o. mesh-nccl — a NCCL world of ``torch.cuda.device_count()`` ranks, one
    card each, 10 of those sgd steps: within 1e-6 of the single-device
    engine, and whether bit for bit;
@@ -266,6 +286,18 @@ result):
    ``mamba2-780m``); then each kernel's time per launch beside its plain
    version's, a library yardstick's (SDPA; ``torch.topk``; none for the
    scan) and the least time the card could take;
+11b. d2 (slice 15) — the shapes the reference's kernels take that the
+   CUDA routes refused before their shape plans, through the public
+   wrappers with the counters reset just before and read just after
+   (each kernel launched as its plan says): ``flash_attention`` at
+   ``zamba2-7b``'s (1, 32, 4096, 112) in f32 and bf16, ``flash_decode``
+   at ``paligemma-3b``'s D 256 (8 / 1 heads, f32 and bf16) and 40 query
+   heads on one KV head, ``ssd_scan`` at hd 160, N 6, chunk 256 and at N
+   256, chunk 128, ``fused_compress`` over the LM's buffer at block_w
+   2048 and 8192 (bit-exact); each held against its plain version and
+   timed beside it, a library call and its bound (the compressor's
+   wide rows, NaN / tie rows and rows past shared memory are also held
+   in phase 3);
 12. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -307,7 +339,8 @@ from repro_torch.core import (AdaptiveFracController,  # noqa: E402
 from repro_torch.core.closure import ResearchClosure, torchify  # noqa: E402
 from repro_torch.core.compression import (randk_indices,  # noqa: E402
                                           randk_scores)
-from repro_torch.core.flatbuf import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core.flatbuf import (tree_leaves, tree_map,  # noqa: E402
+                                      tree_paths)
 from repro_torch.core.guardrails import make_lm_probe  # noqa: E402
 from repro_torch.core import reducer as reducer_mod  # noqa: E402
 from repro_torch.core import simulation as sim  # noqa: E402
@@ -326,6 +359,9 @@ from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
 from repro_torch.core.mesh_engine import ElasticMeshSGD  # noqa: E402
 from repro_torch.configs.shapes import InputShape  # noqa: E402
 import repro_torch.distributed.world as dist_world  # noqa: E402
+from repro_torch.distributed import tensor_parallel as tp_mod  # noqa: E402
+from repro_torch.distributed.sharded_step import compute_plan  # noqa: E402
+from repro_torch.distributed.sharding import param_specs  # noqa: E402
 from repro_torch.launch.dryrun import run_dryrun  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.elastic_sgd import run_demo  # noqa: E402
@@ -1107,21 +1143,20 @@ def phase_fused_kernel(card: str) -> dict:
           f"us ({t['bound_by']}, {t['bytes'] / 1e6:.2f} MB); called eagerly "
           f"{t['ms_eager'] * 1e3:.1f} / {t['plain_ms_eager'] * 1e3:.1f} / "
           f"{t['library_ms_eager'] * 1e3:.1f} us | {card}")
-    # the CUDA kernel's widest block is MAX_BLOCK_W (1024); wider blocks
-    # (the CPU's plain version takes them) must be refused, not launched
-    g = torch.ones(2, 5000, device="cuda")
-    before = tk_ops.COUNTER.count
-    try:
-        tk_ops.fused_block_topk_batched(g, g, k=4, block_w=2048)
-    except ValueError as e:
-        if "block_w=2048" not in str(e) or "CUDA kernel" not in str(e):
-            raise
-    else:
-        raise AssertionError("fused_compress took block_w=2048 on the card")
-    if tk_ops.COUNTER.count != before:
-        raise AssertionError("the refused block_w=2048 call launched")
-    print("[kernel] fused_compress block_w=2048 on the card: refused "
-          "(MAX_BLOCK_W 1024)")
+    # rows wider than the warp path's 1024 run the block path: staged in
+    # shared memory (W 2048, 1100-wide ragged rows, NaN and tie rows), and
+    # worked in place in the residual past 227 KiB (W 65 536)
+    g = torch.randn(3, 5000, generator=gen)
+    r = torch.randn(3, 5000, generator=gen) * 0.3
+    g[1, 7] = float("nan")
+    g[2, 2048:4096] = torch.sign(g[2, 2048:4096]) * 2.0
+    r[2, 2048:4096] = 0.0
+    for W, k in ((2048, 4), (1100, 3), (5000, 3)):
+        err = max(err, tk_check(f"wide rows W={W} k={k} x3", cuda(g),
+                                cuda(r), k, W))
+    g = torch.randn(2, 140_000, generator=gen)
+    err = max(err, tk_check("unstaged rows W=65536 k=3 x2", cuda(g),
+                            cuda(g * 0.5), 3, 65536))
     return {"max_abs_err": err, "demo": t}
 
 
@@ -3563,6 +3598,25 @@ MESH_MOE_SMALL = dict(batch=8, seq=32, steps=6, lr=0.1,
                       churn={3: [("leave", 2)], 5: [("join", 2)]})
 MESH_MOE_SMALL_TOL = 1e-5
 MOE_IMPLS = ("einsum", "sort")
+# slice 15: Mamba2 blocks split over `model`; mamba2-780m at full width
+# and depth (48 layers) in f32, 3 sgd steps (timed), and zamba2-7b's
+# .reduced() (f32) under leave / join on the same mesh. At 48 layers the
+# f32 engine's gradient is ill-conditioned: params perturbed by 1e-7
+# (relative) move the loss after two sgd steps by 5.8e-4, at 24 layers
+# by 2.3e-5, at 12 by 8.6e-8 (NVIDIA H100 80GB HBM3, 700 W; this phase
+# prints the full depth's figure each run). So at full depth the
+# split forward is gated (the first step's loss, before any update) and
+# the later losses printed beside that noise floor, and the gradient and
+# update gates (every step's loss, the params after 3 steps) run at
+# full width with the depth cut to 12. Params are held within 1e-5
+# absolute, as the CPU tests hold them: the zero-initialised conv_b and
+# dt_bias are their own updates, which the same 1e-7 perturbation moves
+# by 2.6e-4-3.3e-4 of their size at 12 layers (printed each run)
+MESH_SSM_ARCH, MESH_SSM_STEPS, MESH_SSM_LR = "mamba2-780m", 3, 0.01
+MESH_SSM_GATED_LAYERS = 12
+MESH_SSM_NOISE = 1e-7
+MESH_SSM_TOL = 1e-5
+MESH_SSM_SMALL_ARCH = "zamba2-7b"
 
 
 def mesh_moe_cfg(impl: str = None, reduced: bool = False):
@@ -3579,17 +3633,23 @@ def mesh_moe_cfg(impl: str = None, reduced: bool = False):
 
 def single_engine_run(cfg, *, steps: int, lr: float, churn: dict,
                       batch: int, seq: int, device: str,
-                      keep_params: bool = True):
+                      keep_params: bool = True, noise: float = 0.0):
     """The port's single-device engine as the ranks run it: ``cfg`` from
     seed 0, ``data_stream`` seed 0, sgd at ``lr``, 4 workers under
-    ``churn``. Returns (history, the final params on the host, or None
-    unless ``keep_params``)."""
+    ``churn``; ``noise``: each param first scaled by 1 + noise x a normal
+    draw (seed 1). Returns (history, the final params on the host, or
+    None unless ``keep_params``)."""
     opt = sgd(lr=lr)
+    params = tf.init_params(cfg, seed=0, device=device)
+    if noise:
+        gen = torch.Generator(device=device).manual_seed(1)
+        params = tree_map(lambda x: x * (1 + noise * torch.randn(
+            x.shape, generator=gen, device=device)), params)
     eng = ElasticMeshSGD(
         train_step=build_train_step(cfg, opt, remat=False),
-        state=make_train_state(tf.init_params(cfg, seed=0, device=device),
-                               opt), n_workers=MESH_WORKERS,
+        state=make_train_state(params, opt), n_workers=MESH_WORKERS,
         global_batch=batch)
+    del params
     stream = train_mod.data_stream(cfg.vocab_size, batch, seq, 0,
                                    device=device)
     for i in range(steps):
@@ -3775,16 +3835,213 @@ def mesh_moe_gates(card: str, runs: list, single: dict, work: Path
             "n_params": cfg.n_params()}
 
 
+def mesh_ssm_cfg(n_layers: int = 0):
+    """``[mesh-ssm]``'s config: mamba2-780m at full width, its full depth
+    or ``n_layers``, params and activations in float32."""
+    cfg = get_config(MESH_SSM_ARCH)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               param_dtype="float32", activ_dtype="float32")
+
+
+def single_ssm_runs(card: str) -> dict:
+    """``[mesh-ssm]``'s reckoning and single-device engines, before the
+    world: the dry-run's bytes and compute plan on (data 2, model 2);
+    mamba2-780m's engine on the card at full depth (3 sgd steps), again
+    from params perturbed by ``MESH_SSM_NOISE`` (the noise floor of its
+    later losses), and at ``MESH_SSM_GATED_LAYERS`` layers; zamba2-7b's
+    ``.reduced()`` under leave / join on the card and on the CPU."""
+    t0 = time.perf_counter()
+    cfg = mesh_ssm_cfg()
+    gated = mesh_ssm_cfg(MESH_SSM_GATED_LAYERS)
+    shape = InputShape("mesh-ssm", MESH_SEQ, MESH_BATCH, "train")
+    dmesh = Mesh(*MESH_DIST)
+    dr = {c.n_layers: run_dryrun(c, shape, mesh=dmesh, optimizer_name="sgd",
+                                 remat=False) for c in (cfg, gated)}
+    params = tf.abstract_params(cfg)
+    plan = compute_plan([(p, x.shape) for p, x in tree_paths(params)],
+                        param_specs(params, cfg, dmesh, "train"), dmesh)
+    ssm = [p for p, _ in tree_paths(params) if tp_mod.is_ssm(p)]
+    split = sorted(p[-1] if p[-1] != "scale" else p[-2]
+                   for p in ssm if p in plan.split)
+    partial = sorted(p[-1] for p in ssm if p in plan.partial)
+    if split != ["gate_norm", "out_proj"] \
+            or partial != sorted(tp_mod.SSM_PARTIAL):
+        raise AssertionError(f"[mesh-ssm] compute plan: split {split}, "
+                             f"partial {partial}")
+    del params
+    free_card()
+    run = dict(steps=MESH_SSM_STEPS, lr=MESH_SSM_LR, churn={},
+               batch=MESH_BATCH, seq=MESH_SEQ, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    hist, _ = single_engine_run(cfg, keep_params=False, **run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    noisy, _ = single_engine_run(cfg, keep_params=False,
+                                 noise=MESH_SSM_NOISE, **run)
+    gated_hist, gated_p = single_engine_run(gated, **run)
+    _, noisy_p = single_engine_run(gated, noise=MESH_SSM_NOISE, **run)
+    gated_floor = leaf_errs(noisy_p, gated_p)
+    del noisy_p
+    small_cfg = get_config(MESH_SSM_SMALL_ARCH).reduced()
+    sm = MESH_MOE_SMALL
+    small = {dev: single_engine_run(
+        small_cfg, steps=sm["steps"], lr=sm["lr"], churn=sm["churn"],
+        batch=sm["batch"], seq=sm["seq"], device=dev)
+        for dev in ("cuda", "cpu")}
+    floor = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(noisy, hist)]
+    print(f"[mesh-ssm] reckoned before the world: {MESH_SSM_ARCH} at full "
+          f"width and depth ({cfg.n_layers} layers, {cfg.n_params()} "
+          f"parameters, f32), sgd, on (data 2, model 2): compute plan "
+          f"splits {split} of every Mamba2 block over model and "
+          f"all-reduces the gradients of {partial} over (data, model); per "
+          f"rank {dr[cfg.n_layers]['memory']['state_bytes']} bytes stored, "
+          f"wire {dr[cfg.n_layers]['collectives']} a step, "
+          f"useful_flops_ratio {dr[cfg.n_layers]['useful_flops_ratio']:.4f}"
+          f" (run_dryrun); the single-device engine's peak {peak:.2f} GiB; "
+          f"its losses from params perturbed by {MESH_SSM_NOISE:g} part by "
+          f"{', '.join(f'{x:.2e}' for x in floor)} relative, step by step "
+          f"(the noise floor at {cfg.n_layers} layers) | {card}")
+    return {"cfg": cfg, "gated_cfg": gated, "dryrun": dr, "history": hist,
+            "noise_floor": floor, "gated_floor": gated_floor,
+            "gated_history": gated_hist,
+            "gated_params": gated_p, "peak_gib": peak, "small": small,
+            "split": split, "partial": partial,
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_ssm_gates(card: str, runs: list, single: dict, work: Path
+                   ) -> dict:
+    """``[mesh-ssm]``'s gates on the world's runs (every rank's) against
+    the single-device engines of ``single_ssm_runs``; rank 0 saved the
+    gated runs' gathered params under ``work``."""
+    if not dist_world.same_everywhere(runs):
+        raise AssertionError("[mesh-ssm] ranks report different metrics")
+    launched = [r["launches"] for m in runs for r in m["runs"]]
+    if any(any(v.values()) for v in launched):
+        raise AssertionError(f"[mesh-ssm] kernels launched: {launched}")
+    cfg, gated = single["cfg"], single["gated_cfg"]
+    full = [m["runs"][0] for m in runs]
+    for j, c in ((0, cfg), (1, gated)):
+        dr = single["dryrun"][c.n_layers]
+        for m in runs:
+            r = m["runs"][j]
+            if r["stored_bytes"] != dr["memory"]["state_bytes"] or any(
+                    w != dr["collectives"] for w in r["wire_bytes"]):
+                raise AssertionError(
+                    f"[mesh-ssm] {c.n_layers} layers: stored "
+                    f"{r['stored_bytes']} / wire {r['wire_bytes'][0]} "
+                    f"against the dry-run's {dr['memory']['state_bytes']} "
+                    f"/ {dr['collectives']}")
+    hist = full[0]["history"]
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"[mesh-ssm] metrics {hist}")
+    # full depth: the split forward, before any update
+    first = history_gate(hist[:1], single["history"][:1], MESH_SSM_TOL,
+                         "[mesh-ssm] full depth, the first step")
+    later = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(hist, single["history"])]
+    # the depth cut: every step's loss and the params after the updates
+    g_rel = history_gate(runs[0]["runs"][1]["history"],
+                         single["gated_history"], MESH_SSM_TOL,
+                         f"[mesh-ssm] {gated.n_layers} layers")
+    path = work / "mesh_ssm.pt"
+    got = torch.load(path)
+    path.unlink()
+    p_abs, p_rel = leaf_errs(got, single.pop("gated_params"))
+    del got
+    if not p_abs <= MESH_SSM_TOL:
+        raise AssertionError(f"[mesh-ssm] {gated.n_layers} layers: gathered "
+                             f"params {p_abs} apart (bound {MESH_SSM_TOL})")
+    path = work / "mesh_ssm_small.pt"
+    small_p = torch.load(path)
+    path.unlink()
+    small = {}
+    for dev in ("cuda", "cpu"):
+        want_h, want_p = single["small"][dev]
+        h_rel = history_gate(runs[0]["runs"][2]["history"], want_h,
+                             MESH_SSM_TOL, f"[mesh-ssm] reduced vs {dev}")
+        sp_abs, sp_rel = leaf_errs(small_p, want_p)
+        if not sp_abs <= MESH_SSM_TOL:
+            raise AssertionError(f"[mesh-ssm] reduced {MESH_SSM_SMALL_ARCH}"
+                                 f": params {sp_abs} apart from the {dev} "
+                                 f"engine's")
+        small[dev] = (h_rel, sp_abs, sp_rel)
+    keys = ("host_ms", "comm_ms", "gather_ms", "partial_ms", "act_ms",
+            "norm_ms")
+    steps = [dict(zip(keys, x)) for r in full
+             for x in zip(*(r[k][1:] for k in keys))]
+    peak = [r["peak_mem_bytes"] / 2**30 for r in full]
+
+    def col(k):
+        return [x[k] for x in steps]
+    heads = cfg.ssm.n_heads(cfg.d_model)
+    print(f"[mesh-ssm] {MESH_SSM_ARCH} full width and depth ("
+          f"{cfg.n_layers} layers, {cfg.n_params()} parameters, f32, TF32 "
+          f"off) through ElasticMeshSGD on {DIST_RANKS} gloo ranks, mesh "
+          f"(data 2, model 2), each Mamba2 block's heads split over model "
+          f"({heads} heads, {heads // 2} a rank), {MESH_BATCH} x "
+          f"{MESH_SEQ}, {MESH_SSM_STEPS} sgd steps at lr {MESH_SSM_LR}: "
+          f"every rank the same metrics; the first step's loss {first:.2e} "
+          f"relative of the single-device engine's (bound "
+          f"{MESH_SSM_TOL:g}), the later ones "
+          f"{', '.join(f'{x:.2e}' for x in later[1:])} (not gated: the "
+          f"engine's own noise floor "
+          f"{', '.join(f'{x:.2e}' for x in single['noise_floor'][1:])}); "
+          f"stored {full[0]['stored_bytes']} and wire "
+          f"{full[0]['wire_bytes'][0]} bytes per rank = run_dryrun's; no "
+          f"kernel launched | {card}")
+    fl_abs, fl_rel = single["gated_floor"]
+    print(f"[mesh-ssm] depth cut to {gated.n_layers} layers, the same "
+          f"schedule: losses {g_rel:.2e} relative, gathered params "
+          f"{p_abs:.2e} apart (bound {MESH_SSM_TOL:g}) of the single-device "
+          f"engine's, {p_rel:.2e} relative per leaf at most (the engine's "
+          f"own from params perturbed by {MESH_SSM_NOISE:g}: {fl_abs:.2e} "
+          f"apart, {fl_rel:.2e} relative); bytes = run_dryrun's | {card}")
+    print(f"[mesh-ssm] ms per step at full depth (host clock, a sync before "
+          f"each collective, steps after the first, all ranks): "
+          f"{spread(col('host_ms'))}; the collectives' share "
+          f"{spread([x['comm_ms'] / x['host_ms'] for x in steps])}, gathers "
+          f"{spread(col('gather_ms'))} ms, the partial leaves' gradient "
+          f"all-reduces {spread(col('partial_ms'))} ms, activation "
+          f"all-reduces {spread(col('act_ms'))} ms, of which the norms' "
+          f"sums of squares {spread(col('norm_ms'))} ms; peak memory per "
+          f"rank {min(peak):.2f}-{max(peak):.2f} GiB (single-device "
+          f"{single['peak_gib']:.2f}) | {card}")
+    print(f"[mesh-ssm] {MESH_SSM_SMALL_ARCH}.reduced() f32 on the same mesh,"
+          f" {MESH_MOE_SMALL['steps']} sgd steps, worker 2 away for steps "
+          f"3-4: losses (relative) / params (apart; relative per leaf) vs "
+          f"the card's single-device engine {small['cuda'][0]:.1e} / "
+          f"{small['cuda'][1]:.1e}; {small['cuda'][2]:.1e}, vs the CPU's "
+          f"{small['cpu'][0]:.1e} / {small['cpu'][1]:.1e}; "
+          f"{small['cpu'][2]:.1e} (bound {MESH_SSM_TOL:g}) | {card}")
+    return {"history": hist, "first_loss_rel": first, "later_loss_rel": later,
+            "noise_floor": single["noise_floor"], "gated_loss_rel": g_rel,
+            "gated_param_abs": p_abs, "gated_param_rel": p_rel,
+            "gated_floor": single["gated_floor"],
+            **{k: col(k) for k in keys},
+            "comm_share": [x["comm_ms"] / x["host_ms"] for x in steps],
+            "peak_gib": peak, "single_peak_gib": single["peak_gib"],
+            "wire_bytes": full[0]["wire_bytes"][0],
+            "stored_bytes": full[0]["stored_bytes"], "small": small,
+            "n_params": cfg.n_params(), "split": single["split"],
+            "partial": single["partial"], "useful_flops_ratio":
+                single["dryrun"][cfg.n_layers]["useful_flops_ratio"]}
+
+
 def phase_dist(card: str) -> dict:
-    """``[dist-collectives]``, ``[mesh-dist]`` and ``[mesh-moe]``: one
-    world of 4 gloo ranks on the card (``distributed.world``; kernel 3
-    was built before the spawn, so the ranks load it), the single-device
-    gates in this process ([mesh-moe]'s before the world)."""
+    """``[dist-collectives]``, ``[mesh-dist]``, ``[mesh-moe]`` and
+    ``[mesh-ssm]``: one world of 4 gloo ranks on the card
+    (``distributed.world``; kernel 3 was built before the spawn, so the
+    ranks load it), the single-device gates in this process ([mesh-moe]'s
+    and [mesh-ssm]'s before the world)."""
     tk_ops.block_topk_library()          # built here, loaded by the ranks
     work = ROOT / "build" / "dist"
     shutil.rmtree(work, ignore_errors=True)      # a stale rendezvous file
     work.mkdir(parents=True)
     single_moe = single_moe_runs(card)
+    t_ssm = time.perf_counter()
+    single_ssm = single_ssm_runs(card)
+    ssm_single_s = time.perf_counter() - t_ssm
     gathered = str(work / "mesh_dist_params.pt")
     gathered_step = str(work / "mesh_dist_step.pt")
     coll_job = {"n": DIST_N, "seed": 11, "block": DIST_BLOCK,
@@ -3816,18 +4073,37 @@ def phase_dist(card: str) -> dict:
              "optimizer": ("sgd", {"lr": sm["lr"]}),
              "gather": str(work / f"mesh_moe_{impl}.pt")}
             for impl in MOE_IMPLS]}
+    ssm_job = {
+        "arch": MESH_SSM_ARCH, "mesh": MESH_DIST, "n_workers": MESH_WORKERS,
+        "batches": 0, "seed": 0,
+        "runs": [{"f32": True, "batch": MESH_BATCH, "seq": MESH_SEQ,
+                  "steps": MESH_SSM_STEPS, "timed": True,
+                  "optimizer": ("sgd", {"lr": MESH_SSM_LR})},
+                 {"f32": True, "n_layers": MESH_SSM_GATED_LAYERS,
+                  "batch": MESH_BATCH, "seq": MESH_SEQ,
+                  "steps": MESH_SSM_STEPS,
+                  "optimizer": ("sgd", {"lr": MESH_SSM_LR}),
+                  "gather": str(work / "mesh_ssm.pt")},
+                 {"arch": MESH_SSM_SMALL_ARCH, "reduced": True,
+                  "batch": sm["batch"], "seq": sm["seq"],
+                  "steps": sm["steps"], "churn": sm["churn"],
+                  "optimizer": ("sgd", {"lr": sm["lr"]}),
+                  "gather": str(work / "mesh_ssm_small.pt")}]}
     free_card()
     t0 = time.perf_counter()
     res = dist_world.spawn_world(
         dist_world.chain_program, DIST_RANKS,
         {"chain": [(dist_world.collectives_program, coll_job),
                    (dist_world.mesh_sgd_program, mesh_job),
-                   (dist_world.mesh_sgd_program, moe_job)]},
+                   (dist_world.mesh_sgd_program, moe_job),
+                   (dist_world.mesh_sgd_program, ssm_job)]},
         str(work), backend="gloo", device="cuda", threads=2)
     world_s = time.perf_counter() - t0
     coll = [r[0] for r in res]
     mesh = [r[1] for r in res]
     moe = mesh_moe_gates(card, [r[2] for r in res], single_moe, work)
+    ssm = mesh_ssm_gates(card, [r[3] for r in res], single_ssm, work)
+    ssm["single_s"] = ssm_single_s
     # -- [dist-collectives] ---------------------------------------------------
     for c in coll:
         bad = [k for k in ("sent_equals_plain", "kernel_equals_plain",
@@ -3944,12 +4220,15 @@ def phase_dist(card: str) -> dict:
           f"which the gathers {spread(gat_ms)} ms and the activation "
           f"all-reduces (compute split over model) {spread(act_ms)} ms; "
           f"peak memory per rank {min(peak):.2f}-{max(peak):.2f} GiB; world "
-          f"{world_s:.1f} s (with [mesh-moe]'s runs), single-device gate "
+          f"{world_s:.1f} s (with [mesh-moe]'s and [mesh-ssm]'s runs), "
+          f"single-device gate "
           f"{single_s:.1f} s, [mesh-moe]'s single-device engines "
-          f"{single_moe['seconds']:.1f} s (gloo through host memory on one "
+          f"{single_moe['seconds']:.1f} s, [mesh-ssm]'s {ssm_single_s:.1f} s "
+          f"(gloo through host memory on one "
           f"card: no NCCL or NVLink figure) | {card}")
     out = {"collectives": coll, "mesh_dist": mesh, "world_s": world_s,
            "mesh_moe": moe, "mesh_moe_single_s": single_moe["seconds"],
+           "mesh_ssm": ssm,
            "loss_rel": loss_rel, "param_rel": p_rel, "update_rel": u_rel,
            "update_size": u_size, "update15_rel": u15_rel,
            "block_topk_launches": sum(c["launches"]["block_topk"]
@@ -4473,6 +4752,148 @@ def phase_block_topk(card: str, main: dict) -> dict:
     return {"max_abs_err": 0.0, "timing": timing}
 
 
+# ---------------------------------------------------------------------------
+# slice 15 (D2): the shapes the reference's kernels take that the CUDA
+# routes refused before their shape plans
+# ---------------------------------------------------------------------------
+# zamba2-7b's attention (3584 / 32 heads: D 112, padded to 128 by the plan)
+D2_FA = {f"zamba2-7b {t}": dict(B=1, H=32, K=32, S=4096, T=4096, D=112,
+                                dtype=dt)
+         for t, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+# paligemma-3b's decode (8 query heads on 1 KV head of 256) in the
+# served engine's pool (16 rows, 16-token pages, 512 positions), and 40
+# query heads on one KV head (two launches of 20)
+D2_FD = {"paligemma-3b f32": dict(H=8, K=1, D=256, dtype=torch.float32),
+         "paligemma-3b bf16": dict(H=8, K=1, D=256, dtype=torch.bfloat16),
+         "G=40 f32": dict(H=40, K=1, D=128, dtype=torch.float32)}
+# hd 160 (two launches: 128 columns and 32), N 6 (padded to 8), chunk 256
+# (run at 128); N 256, which fits at chunk 64 for hd 64
+D2_SSD = {"hd=160 N=6 chunk 256": dict(B=2, S=2048, nh=8, hd=160, N=6,
+                                       chunk=256),
+          "N=256 chunk 128": dict(B=2, S=2048, nh=16, hd=64, N=256,
+                                  chunk=128)}
+# the fused compressor over mlitb-lm-100m's flat buffer (one worker) at
+# the LM's keep fraction, 1/128, in rows past the warp path's 1024
+D2_TK = {f"W={W}": dict(n=100_682_496, W=W, k=W // 128) for W in (2048,
+                                                                 8192)}
+
+
+def phase_d2(card: str) -> dict:
+    """The D2 shapes through the public wrappers, the launch counters set
+    to 0 just before and read just after; each output held against the
+    plain version (2e-5 / 3e-2 and 2^-6 a row for the attention kernels,
+    ``ssd_tol``, bit for bit for the compressor), then timed beside its
+    plain version, a library call and its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    cpu_gen = torch.Generator().manual_seed(15)
+    fa_in = {n: fa_inputs(gen, **c) for n, c in D2_FA.items()}
+    fd_in = {n: decode_case(cpu_gen, H=c["H"], K=c["K"], D=c["D"],
+                            layers=12, dtype=c["dtype"])
+             for n, c in D2_FD.items()}
+    ssd_in = {n: ssd_inputs(gen, **c) for n, c in D2_SSD.items()}
+    tk_in = {n: (torch.randn(1, c["n"], generator=gen, device="cuda"),
+                 torch.randn(1, c["n"], generator=gen, device="cuda") * 0.1)
+             for n, c in D2_TK.items()}
+
+    def layer0(a):
+        return {k: (v[0] if k in ("q", "kpool", "vpool") else v)
+                for k, v in a.items()}
+    torch.cuda.synchronize()
+    runtime.reset_counters()
+    fa_out = {n: api.flash_attention(*a) for n, a in fa_in.items()}
+    fd_out = {n: api.flash_decode(**layer0(a)) for n, a in fd_in.items()}
+    ssd_out = {n: api.ssd_scan(*a, chunk=D2_SSD[n]["chunk"])
+               for n, a in ssd_in.items()}
+    tk_out = {n: tk_ops.fused_block_topk_batched(*a, k=D2_TK[n]["k"],
+                                                 block_w=D2_TK[n]["W"])
+              for n, a in tk_in.items()}
+    torch.cuda.synchronize()
+    launches = {n: runtime.COUNTERS[n].count
+                for n in ("flash_attention", "flash_decode", "ssd_scan",
+                          "fused_compress")}
+    want = {"flash_attention": 2, "flash_decode": 4, "ssd_scan": 3,
+            "fused_compress": 2}
+    if launches != want:
+        raise AssertionError(f"[d2] launches {launches}, want {want}")
+    print(f"[d2] the shapes through the wrappers: launches {launches} | "
+          f"{card}")
+    out = {"launches": launches, "flash_attention": {}, "flash_decode": {},
+           "ssd_scan": {}, "fused_compress": {}}
+    for n, a in fa_in.items():
+        err, rel = fa_check(f"[d2] {n} D=112", *a, out=fa_out[n])
+        t = time_fa(f"[d2] {n}", *a, card, iters=4, plain_iters=2)
+        out["flash_attention"][n] = {"max_abs_err": err,
+                                     "max_row_rel_err": rel, **t}
+    for n, a in fd_in.items():
+        one = layer0(a)
+        ref = flash_decode_ref(**one)
+        torch.cuda.synchronize()
+        dtype = D2_FD[n]["dtype"]
+        err = float((fd_out[n].float() - ref.float()).abs().max())
+        rel = row_rel_err(fd_out[n], ref) if dtype == torch.bfloat16 else 0.0
+        if not err <= TOL[dtype] or not rel <= ROW_TOL_BF16:
+            raise AssertionError(f"[d2] flash_decode {n}: max |kernel - "
+                                 f"plain| {err} (bound {TOL[dtype]}), row "
+                                 f"error {rel}")
+        print(f"[kernel] [d2] flash_decode {n}: max |kernel - plain| = "
+              f"{err:.3e} (bound {TOL[dtype]:.0e})"
+              + (f", row error {rel:.3e}" if rel else ""))
+        out["flash_decode"][n] = {"max_abs_err": err, "max_row_rel_err": rel,
+                                  **time_flash_decode(a, card)}
+    for n, a in ssd_in.items():
+        c = D2_SSD[n]
+        err = ssd_check(f"[d2] {n}", a, c["chunk"], out=ssd_out[n])
+
+        def kernel(a=a, c=c):
+            api.ssd_scan(*a, chunk=c["chunk"])
+
+        def plain(a=a, c=c):
+            ssd_scan_ref(*a, chunk=c["chunk"])
+        ms, plain_ms = cuda_ms(kernel, 5), cuda_ms(plain, 2, warmup=1)
+        ms2 = cuda_ms(kernel, 5)
+        q = ssd_ops.internal_chunk(min(c["chunk"], c["S"]),
+                                   max(4, c["N"] + (-c["N"]) % 4),
+                                   min(128, max(32, c["hd"])))
+        res = {"max_abs_err": err, "ms": min(ms, ms2), "ms_runs": [ms, ms2],
+               "plain_ms": plain_ms, "library_ms": None, "chunk_run": q,
+               **ssd_bound(c["B"], c["S"], c["nh"], c["hd"], c["N"], q)}
+        print(f"[kernel] [d2] ssd_scan timing, {n} (B {c['B']}, S {c['S']}, "
+              f"nh {c['nh']}, hd {c['hd']}, N {c['N']}, run at chunk {q}, "
+              f"f32): kernel {res['ms']:.3f} ms ({ms:.3f}, {ms2:.3f}), plain "
+              f"{plain_ms:.3f} ms, no library call, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}) | {card}")
+        out["ssd_scan"][n] = res
+    for n, (g, r) in tk_in.items():
+        c = D2_TK[n]
+        ref = fused_block_topk_batched_ref(g, r, k=c["k"], block_w=c["W"])
+        torch.cuda.synchronize()
+        for x, y, what in zip(tk_out[n], ref, ("values", "indices",
+                                               "residual")):
+            if not same(x, y):
+                raise AssertionError(f"[d2] fused_compress {n}: {what} "
+                                     f"differ from the plain version")
+        del ref
+        t = time_fused(g, r, c["k"], c["W"], iters=5, plain_iters=1,
+                       graph=False)
+        print(f"[kernel] [d2] fused_compress {n} k={c['k']} over "
+              f"{c['n']} entries: bit-exact; kernel {t['ms']:.3f} ms "
+              f"({t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f}), plain "
+              f"{t['plain_ms']:.3f} ms, torch.topk {t['library_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) | {card}")
+        out["fused_compress"][n] = {"max_abs_err": 0.0, **t}
+    del fa_in, fd_in, ssd_in, tk_in, fa_out, fd_out, ssd_out, tk_out
+    free_card()
+    return out
+
+
+def d2_rows(d2: dict, name: str) -> dict:
+    """A kernel's D2 shapes for the kernels line: per shape its error,
+    times and bound."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {n: {k: r.get(k) for k in keys} for n, r in d2[name].items()}
+
+
 def build_all() -> dict:
     """Build every kernel from this checkout, one nvcc per source, all
     started together."""
@@ -4551,6 +4972,9 @@ def main() -> int:
     ssd = phase_ssd(card, main_api)
     bt = phase_block_topk(card, main_api)
     launches = main_api.pop("launches")
+    t15 = time.perf_counter()
+    d2 = phase_d2(card)
+    d2["seconds"] = time.perf_counter() - t15
     del main_api
     demo = fused["demo"]
     fa_t = fa["timing"]["mlitb-lm-100m prefill"]
@@ -4574,6 +4998,8 @@ def main() -> int:
                                             "library_ms", "live_tokens")},
          "max_abs_err_moe_bf16": slice10["moe"]["max_abs_err"],
          "max_row_rel_err_moe_bf16": slice10["moe"]["max_row_rel_err"],
+         "launches_d2": d2["launches"]["flash_decode"],
+         "d2": d2_rows(d2, "flash_decode"),
          "max_abs_err": kern["max_abs_err"],
          "max_abs_err_bf16": kern["max_abs_err_bf16"],
          "max_row_rel_err_bf16": kern["max_row_rel_err_bf16"],
@@ -4588,6 +5014,8 @@ def main() -> int:
          "launches": train["launches"],
          "launches_adaptive_keep": train_lm["keep_launches"],
          "launches_hierarchy": slice9["hier-small"]["launches"],
+         "launches_d2": d2["launches"]["fused_compress"],
+         "d2": d2_rows(d2, "fused_compress"),
          "max_abs_err": max(fused["max_abs_err"], lm["max_abs_err"]),
          "ms": demo["ms"], "plain_ms": demo["plain_ms"],
          "bound_ms": demo["bound_ms"], "bound_by": demo["bound_by"],
@@ -4609,6 +5037,8 @@ def main() -> int:
                    "warpgroups, 3-4-stage mbarrier ring; else mma.sync "
                    "(bf16) / 3xTF32 (f32), 2-stage cp.async K/V",
          "launches": launches["flash_attention"],
+         "launches_d2": d2["launches"]["flash_attention"],
+         "d2": d2_rows(d2, "flash_attention"),
          "max_abs_err": fa["max_abs_err"],
          "max_abs_err_bf16": fa["max_abs_err_bf16"],
          "max_row_rel_err_bf16": fa["max_row_rel_err_bf16"],
@@ -4620,7 +5050,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:25",
          "design": "chunk states (wgmma) + C B^T once per (b, chunk) "
                    "(mma.sync), state pass, chunk scan (wgmma); 3xTF32",
-         "launches": launches["ssd_scan"], "max_abs_err": ssd["max_abs_err"],
+         "launches": launches["ssd_scan"],
+         "launches_d2": d2["launches"]["ssd_scan"],
+         "d2": d2_rows(d2, "ssd_scan"), "max_abs_err": ssd["max_abs_err"],
          "max_abs_err_bf16": ssd["max_abs_err_bf16"],
          "max_row_rel_err_bf16": ssd["max_row_rel_err_bf16"],
          "row_rel_tol_bf16": ROW_TOL_BF16,
@@ -4645,7 +5077,7 @@ def main() -> int:
          "dist": dist,
          "api_launches": launches,
          "flash_attention": fa,
-         "ssd_scan": ssd, "block_topk": bt,
+         "ssd_scan": ssd, "block_topk": bt, "d2": d2,
          "total_s": time.perf_counter() - t_start},
         indent=1, default=str))
     slice8 = (spec["seconds"], oneshot["seconds"],
@@ -4662,7 +5094,8 @@ def main() -> int:
           f"{sum(v['seconds'] for v in slice11.values()):.1f} s ("
           + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in slice11.items())
           + f"); slice 12's mesh-train {mesh['seconds']:.1f} s; slices 13 "
-          f"and 14's dist (with [mesh-moe]) {dist['seconds']:.1f} s")
+          f"and 14's dist (with [mesh-moe] and [mesh-ssm]) "
+          f"{dist['seconds']:.1f} s; slice 15's d2 {d2['seconds']:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

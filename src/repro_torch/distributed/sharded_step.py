@@ -10,12 +10,15 @@ Run on every rank of an entered ``Mesh`` of ``mesh.size`` ranks:
   - **rows**: a step takes the global batch and keeps the rank's rows
     (``batch_spec``): split over pod and data, replicated over ``model``;
   - **compute**: a leaf whose spec splits it over ``model`` for compute
-    (``tensor_parallel.split_dim``: heads, FF, vocab, experts) is
-    all-gathered over its FSDP axes only, and its block computes this
-    rank's share inside ``tensor_parallel.sharded_compute`` (Megatron's
-    column / row products, the vocab-parallel embedding and
-    cross-entropy, expert parallelism), as GSPMD splits the reference's.
-    Every other leaf (SSM projections, norms, the router, dims that
+    (``tensor_parallel.split_dim``: heads, FF, vocab, experts, a Mamba2
+    block's ``out_proj`` rows and ``gate_norm`` where its heads divide
+    over ``model``) is all-gathered over its FSDP axes only, and its
+    block computes this rank's share inside
+    ``tensor_parallel.sharded_compute`` (Megatron's column / row
+    products, the vocab-parallel embedding and cross-entropy, expert
+    parallelism, a Mamba2 block's heads), as GSPMD splits the
+    reference's. Every other leaf (a Mamba2 block's packed ``in_proj``,
+    its conv and per-head leaves, norms, the router, dims that
     ``sanitize_spec`` replicated) is gathered whole;
   - **gradients**: the rank computes its rows' masked NLL sum and count,
     all-reduces (sum, count) over the batch axes, takes the gradient of
@@ -24,7 +27,8 @@ Run on every rank of an entered ``Mesh`` of ``mesh.size`` ranks:
     each gradient over the batch axes (a reduce-scatter as an all-reduce
     and a slice) into its own shards, and applies the optimizer to them.
     A replicated leaf read inside a split attention (``q_norm`` /
-    ``k_norm``, replicated KV projections) has only its local heads'
+    ``k_norm``, replicated KV projections) or a gathered leaf of a split
+    Mamba2 block (its heads' columns, B and C) has only the local heads'
     share on each rank, so its all-reduce takes ``model`` too
     (``tensor_parallel.partial_leaves``). AdaGrad, SGD and Adam are
     elementwise, so this is the unsharded update. When the batch is
@@ -42,6 +46,7 @@ keeps it from stopping early), and the reckoning counts them twice.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import (Any, Dict, FrozenSet, Iterable, List, Optional,
                     Sequence, Tuple)
@@ -53,12 +58,20 @@ from repro_torch.distributed.collectives import all_gather, all_reduce
 from repro_torch.distributed.comm_analysis import wire_bytes
 from repro_torch.distributed.sharding import (P, batch_axis, batch_spec,
                                               local_shape, local_slice)
-from repro_torch.distributed.tensor_parallel import (MODEL, partial_leaves,
+from repro_torch.distributed.tensor_parallel import (MODEL, is_ssm,
+                                                     partial_leaves,
                                                      sharded_compute,
                                                      split_dim)
 from repro_torch.launch.mesh import Mesh, axes_of
 
 PyTree = Any
+# host seconds of the partial leaves' gradient all-reduces (over the
+# batch axes and ``model``) since ``reset_partial``
+PARTIAL = {"seconds": 0.0}
+
+
+def reset_partial() -> None:
+    PARTIAL["seconds"] = 0.0
 
 
 def gather_steps(shape: Sequence[int], spec: P, mesh: Mesh
@@ -105,14 +118,26 @@ class ComputePlan:
     head: bool
 
 
-def compute_plan(leaves: Iterable[Tuple[Tuple[str, ...], int]],
+def _ssm_heads(path: Tuple[str, ...],
+               shapes: Dict[Tuple[str, ...], Tuple[int, ...]]
+               ) -> Optional[int]:
+    """A Mamba2 leaf's block's head count (its ``A_log``'s last dim)."""
+    if not is_ssm(path):
+        return None
+    block = path[:-2] if path[-2] == "gate_norm" else path[:-1]
+    return shapes[block + ("A_log",)][-1]
+
+
+def compute_plan(leaves: Iterable[Tuple[Tuple[str, ...], Sequence[int]]],
                  specs: PyTree, mesh: Mesh) -> ComputePlan:
-    """The plan for leaves given as (path, ndim), stored per ``specs``."""
+    """The plan for leaves given as (path, shape), stored per ``specs``."""
     spec_of = dict(tree_paths(specs))
+    shapes = {p: tuple(shape) for p, shape in leaves}
     split, gather = {}, {}
-    for path, ndim in leaves:
+    for path, shape in shapes.items():
         spec = spec_of[path]
-        dim = split_dim(path, ndim, spec, mesh)
+        dim = split_dim(path, len(shape), spec, mesh,
+                        _ssm_heads(path, shapes))
         if dim is not None:
             split[path] = dim
             spec = P(*(None if i == dim else e for i, e in enumerate(spec)))
@@ -154,7 +179,7 @@ def step_collectives(params: PyTree, specs: PyTree, mesh: Mesh,
                 add("all-gather", shape, leaf.dtype)
         return out
     split = mesh.axes_size(batch_entry) > 1
-    plan = compute_plan([(p, x.dim()) for p, x in leaves], specs, mesh)
+    plan = compute_plan([(p, x.shape) for p, x in leaves], specs, mesh)
     m = mesh.shape.get(MODEL, 1)
     if split:
         add("all-reduce", (2,), torch.float32)      # (sum_nll, count)
@@ -174,14 +199,15 @@ def activation_collectives(params: PyTree, plan: ComputePlan, cfg,
                            remat: bool, add) -> None:
     """``add(op, shape, dtype)`` for each activation collective of one
     step over (rows, seq) tokens per rank, all in f32: per split
-    attention, MLP or expert block a forward ``reduce_from_model`` and a
-    backward ``copy_to_model`` of its (rows, length, d) input (a
+    attention, MLP, expert or Mamba2 block a forward ``reduce_from_model``
+    and a backward ``copy_to_model`` of its (rows, length, d) input (a
     cross-attention one more of the encoder's states, an MoE block one
-    of its (rows, seq, k) gates); per MoE block under a batch split the
-    router's statistics (2E + 1) over the batch axes; the split embedding
-    one forward all-reduce, the split head one backward and the
-    vocab-parallel cross-entropy three of (rows, seq). A block's forward
-    ones run twice under ``remat``."""
+    of its (rows, seq, k) gates, a Mamba2 block its gated norm's (rows,
+    seq, 1) sum of squares forward and backward); per MoE block under a
+    batch split the router's statistics (2E + 1) over the batch axes;
+    the split embedding one forward all-reduce, the split head one
+    backward and the vocab-parallel cross-entropy three of (rows, seq).
+    A block's forward ones run twice under ``remat``."""
     f32 = torch.float32
     d = cfg.d_model
     fwd = 2 if remat else 1
@@ -214,6 +240,10 @@ def activation_collectives(params: PyTree, plan: ComputePlan, cfg,
             ar((rows, seq, cfg.moe.experts_per_token), n)
         elif name == "w_up":
             ar((rows, lq, d), math.prod(leaf.shape[:-2]) * (fwd + 1))
+        elif name == "out_proj":            # a split Mamba2 block
+            n = math.prod(leaf.shape[:-2]) * (fwd + 1)
+            ar((rows, seq, d), n)
+            ar((rows, seq, 1), n)
 
 
 class ShardedTrainStep:
@@ -283,7 +313,9 @@ class ShardedTrainStep:
         rows = {k: _rows(v, self.batch_entry, mesh) for k, v in batch.items()}
         local = list(tree_paths(state["params"]))
         if self._plan is None:
-            self._plan = compute_plan([(p, x.dim()) for p, x in local],
+            # a local shape serves: only the dims count, and ``A_log``
+            # (the SSM heads) is replicated
+            self._plan = compute_plan([(p, x.shape) for p, x in local],
                                       self.specs["params"], mesh)
         plan = self._plan
         paths = tuple(p for p, _ in local)
@@ -301,10 +333,12 @@ class ShardedTrainStep:
         shards = []
         for i, (path, g) in enumerate(pairs):
             pairs[i] = None
-            axes = self.batch_axes + ((MODEL,) if path in plan.partial
-                                      else ())
-            if axes:
-                g = all_reduce(g, axes, mesh)
+            if path in plan.partial:
+                t0 = time.perf_counter()
+                g = all_reduce(g, self.batch_axes + (MODEL,), mesh)
+                PARTIAL["seconds"] += time.perf_counter() - t0
+            elif self.batch_axes:
+                g = all_reduce(g, self.batch_axes, mesh)
             shards.append(local_slice(g, plan.gather[path], mesh, mesh.rank))
             del g
         new_params, new_opt = self.train_step.optimizer.update(

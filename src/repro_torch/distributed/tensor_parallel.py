@@ -19,17 +19,28 @@ gradients. Inside it:
   - the vocab: ``vocab_parallel_embed`` looks up the rank's rows of the
     table, and ``vocab_parallel_xent`` takes the cross-entropy over the
     rank's columns of the logits;
+  - a Mamba2 block (``models/ssm.py``) computes the rank's nh / m heads:
+    ``out_proj``'s rows and ``gate_norm``'s scale are split like
+    ``wo``; ``in_proj``'s packed [z | x | B | C | dt] columns and the
+    conv's [x | B | C] channels do not fall on head boundaries, so those
+    leaves are gathered whole and the rank reads its heads' z, x and dt
+    columns and B and C whole (shared by the heads), and its heads of
+    ``A_log``, ``D`` and ``dt_bias``. Their gradients are the rank's
+    share and are all-reduced over ``model`` (``partial_leaves``). The
+    gated RMSNorm normalises over the whole d_inner, so its sum of
+    squares is all-reduced over ``model`` forward and backward
+    (``sum_over_model``);
   - ``batch_axes`` (empty when the batch is whole on every rank): the
     MoE router's load-balance loss is global over them
     (``global_aux``).
 
-Which leaves split follows from their sanitized specs alone
-(``split_dim``): a leaf splits where its spec keeps ``model`` on the dim
-the rules put it on, the mesh's ``model`` axis has more than one rank,
-and the leaf is no SSM leaf (SSM projections pack z, x, B, C and dt on
-one dim, whose contiguous shards do not fall on head boundaries: they
-are gathered whole). The ``fsdp_remap`` layout retires ``model`` from
-those dims, so its compute stays replicated.
+Which leaves split follows from their sanitized specs (``split_dim``):
+a leaf splits where its spec keeps ``model`` on the dim the rules put it
+on and the mesh's ``model`` axis has more than one rank; a Mamba2
+block's where, besides, its nh heads divide over ``model`` (else the
+block is gathered whole and computed on every rank). The
+``fsdp_remap`` layout retires ``model`` from those dims, and
+``ssm_no_tp`` from the SSM leaves', so their compute stays replicated.
 
 Outside the context every function here is the identity (or the plain
 function it stands in for), so a single-device step is what it was.
@@ -61,16 +72,34 @@ TP_DIM = {"wq": -2, "wk": -2, "wv": -2, "bq": -2, "bk": -2, "bv": -2,
           "embed": -2, "lm_head": -2}
 EXPERT_DIM = -3                 # an MoE block's stacked experts
 KV_REPLICATED = ("wk", "wv", "bk", "bv")
+# a Mamba2 block's leaves split over its d_inner rows (the rank's heads)
+SSM_TP_DIM = {"out_proj": -2, "scale": -1}
+# and those each rank reads in part (its heads' columns, B and C whole):
+# gathered whole, their gradient all-reduced over ``model``
+SSM_PARTIAL = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias")
 
 
-def split_dim(path: Path, ndim: int, spec: Sequence, mesh: Mesh
-              ) -> Optional[int]:
+def is_ssm(path: Path) -> bool:
+    """``path`` is a leaf of a Mamba2 block: ``.../ssm/<leaf>`` or
+    ``.../ssm/gate_norm/scale``."""
+    return path[-2:-1] == ("ssm",) or path[-3:-1] == ("ssm", "gate_norm")
+
+
+def split_dim(path: Path, ndim: int, spec: Sequence, mesh: Mesh,
+              ssm_heads: Optional[int] = None) -> Optional[int]:
     """The dim of a leaf whose compute splits over ``model`` (None: the
-    leaf is gathered whole before use)."""
-    if mesh.shape.get(MODEL, 1) == 1 or "ssm" in path:
+    leaf is gathered whole before use). ``ssm_heads``: a Mamba2 leaf's
+    block's head count, which must divide over ``model``."""
+    m = mesh.shape.get(MODEL, 1)
+    if m == 1:
         return None
     name = path[-1]
-    if "moe" in path[:-1] and name in ("w_gate", "w_up", "w_down"):
+    if is_ssm(path):
+        if ssm_heads is None or ssm_heads % m or not (
+                name == "out_proj" or path[-2] == "gate_norm"):
+            return None
+        rel = SSM_TP_DIM[name]
+    elif "moe" in path[:-1] and name in ("w_gate", "w_up", "w_down"):
         rel = EXPERT_DIM
     elif name in TP_DIM:
         rel = TP_DIM[name]
@@ -89,9 +118,14 @@ def partial_leaves(paths: Iterable[Path], split: FrozenSet[Path]
     ``bk`` / ``bv`` (sliced to the KV heads the local query heads read).
     A bias added after a ``reduce_from_model`` (``bo``, ``b_down``) and
     the router (its gates go through ``copy_to_model``) get their whole
-    gradient on every rank."""
+    gradient on every rank. In a split Mamba2 block, ``SSM_PARTIAL``
+    (each rank reads its heads' part and B and C whole)."""
     out = []
     for p in paths:
+        if p[-1] in SSM_PARTIAL and is_ssm(p):
+            if p[:-1] + ("out_proj",) in split:
+                out.append(p)
+            continue
         pre = p[:-1]
         if p[-1] == "scale" and len(p) >= 2 and p[-2] in ("q_norm",
                                                            "k_norm"):
@@ -124,12 +158,13 @@ class Context:
 
 
 _STATE = {"ctx": None}
-# host seconds and calls of the activation collectives since reset()
-ACTIVATION = {"seconds": 0.0, "calls": 0}
+# host seconds and calls of the activation collectives since reset(),
+# and apart the seconds of the Mamba2 norms' sums of squares
+ACTIVATION = {"seconds": 0.0, "calls": 0, "norm_seconds": 0.0}
 
 
 def reset_activation() -> None:
-    ACTIVATION.update(seconds=0.0, calls=0)
+    ACTIVATION.update(seconds=0.0, calls=0, norm_seconds=0.0)
 
 
 @contextlib.contextmanager
@@ -160,15 +195,18 @@ def head_split() -> bool:
     return ctx is not None and ctx.head
 
 
-def _reduce(x: torch.Tensor, axes: Sequence[str], op: str = "sum"
-            ) -> torch.Tensor:
+def _reduce(x: torch.Tensor, axes: Sequence[str], op: str = "sum",
+            norm: bool = False) -> torch.Tensor:
     """``all_reduce`` of an activation (in f32, cast back), timed into
-    ``ACTIVATION``."""
+    ``ACTIVATION`` (``norm``: into its ``norm_seconds`` as well)."""
     ctx = _STATE["ctx"]
     t0 = time.perf_counter()
     y = all_reduce(x.float(), tuple(axes), ctx.mesh, op=op)
-    ACTIVATION["seconds"] += time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    ACTIVATION["seconds"] += dt
     ACTIVATION["calls"] += 1
+    if norm:
+        ACTIVATION["norm_seconds"] += dt
     return y if x.dtype == torch.float32 else y.to(x.dtype)
 
 
@@ -235,6 +273,35 @@ def kv_heads_read(q0: int, n_local_q: int, group: int
             h for h in heads for _ in range(n_local_q // len(heads))]:
         return heads, True
     return per_head, False
+
+
+def local_heads(n_heads: int) -> Tuple[int, int]:
+    """The global range ``[h0, h0 + n_heads / m)`` of a split Mamba2
+    block's heads on this rank."""
+    n = n_heads // _STATE["ctx"].size
+    h0 = _STATE["ctx"].index * n
+    return h0, h0 + n
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _reduce(x, (MODEL,), norm=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, (MODEL,), norm=True)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """A statistic every rank uses, summed over ``model`` (a split
+    Mamba2 block's sum of squares under its gated RMSNorm): an
+    all-reduce forward, and of its gradient in backward, since each
+    rank's loss reads it through its own share. The identity outside a
+    context."""
+    if _STATE["ctx"] is None:
+        return x
+    return _SumOverModel.apply(x)
 
 
 def local_experts(n_local: int) -> Tuple[int, int]:

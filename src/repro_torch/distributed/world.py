@@ -18,9 +18,9 @@ on the card (gloo over CUDA tensors, or NCCL with one card per rank).
     metrics, wire bytes by op and host ms; the stored bytes; peak memory;
     the gathered params (from rank 0, to a file);
   - ``tensor_parallel_program``: the functions of
-    ``distributed/tensor_parallel.py`` and the split MLP and attention on
-    each rank's parts of full tensors over a (model world) mesh, with
-    their gradients.
+    ``distributed/tensor_parallel.py`` and the split MLP, attention and
+    Mamba2 blocks on each rank's parts of full tensors over a (model
+    world) mesh, with their gradients.
 
 Ranks on one card share it (gloo copies each collective's bytes through
 host memory); their times are no NCCL or NVLink figures.
@@ -40,7 +40,8 @@ import torch.multiprocessing as mp
 from repro_torch.configs import get_config
 from repro_torch.core.flatbuf import tree_leaves, tree_map
 from repro_torch.core.mesh_engine import ElasticMeshSGD
-from repro_torch.distributed import comm_analysis, tensor_parallel
+from repro_torch.distributed import (comm_analysis, sharded_step,
+                                     tensor_parallel)
 from repro_torch.distributed.activation_sharding import activation_sharding
 from repro_torch.distributed.collectives import (
     block_topk_sparsify, compressed_reduce, hierarchical_weighted_reduce,
@@ -54,6 +55,7 @@ from repro_torch.kernels.topk_compress.ref import block_topk_flat_ref
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.optim import get_optimizer
 from repro_torch.train.step import build_train_step, make_train_state
@@ -291,10 +293,13 @@ def mesh_sgd_program(rank: int, world: int, job: Dict[str, Any],
     ``init_params`` from ``seed``), ``timed`` (synchronize before each
     collective and sum its host time), ``gather`` (a path: rank 0 saves
     the gathered params there; every rank gathers, it is collective),
-    ``n_layers`` (a depth cut), ``moe_impl`` (``"einsum"`` or
-    ``"sort"``), ``remat`` (default False). Per step a run reports the
-    wire bytes by op, the host ms, the collectives' host ms, and apart
-    the gathers' and the activation collectives' (``tensor_parallel``)."""
+    ``n_layers`` (a depth cut), ``f32`` (params and activations in
+    float32), ``moe_impl`` (``"einsum"`` or ``"sort"``), ``remat``
+    (default False). Per step a run reports the wire bytes by op, the
+    host ms, the collectives' host ms, and apart the gathers', the
+    activation collectives' (``tensor_parallel``; the Mamba2 norms' sums
+    of squares among them, and apart) and the partial leaves' gradient
+    all-reduces (``sharded_step.PARTIAL``)."""
     mesh = Mesh(*job["mesh"])
     results = []
     with mesh:
@@ -311,6 +316,9 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
         cfg = cfg.reduced()
     if run.get("n_layers"):
         cfg = dataclasses.replace(cfg, n_layers=run["n_layers"])
+    if run.get("f32"):
+        cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  activ_dtype="float32")
     if run.get("moe_impl"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, impl=run["moe_impl"]))
@@ -339,6 +347,7 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
         stream = _batches(run, cfg, dev)
         comm_analysis.COUNTER.sync = run.get("timed", False)
         host_ms, wire, comm_ms, gather_ms, act_ms = [], [], [], [], []
+        norm_ms, partial_ms = [], []
         reset_counters()
         try:
             for i in range(run["steps"]):
@@ -347,6 +356,7 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
                 b = next(stream)
                 comm_analysis.reset()
                 tensor_parallel.reset_activation()
+                sharded_step.reset_partial()
                 _sync(dev)
                 t = time.perf_counter()
                 eng.step(b)                 # the metrics' floats sync
@@ -356,11 +366,15 @@ def _mesh_run(rank: int, mesh: Mesh, run: Dict[str, Any],
                 comm_ms.append(1e3 * sum(seconds.values()))
                 gather_ms.append(1e3 * seconds.get("all-gather", 0.0))
                 act_ms.append(1e3 * tensor_parallel.ACTIVATION["seconds"])
+                norm_ms.append(
+                    1e3 * tensor_parallel.ACTIVATION["norm_seconds"])
+                partial_ms.append(1e3 * sharded_step.PARTIAL["seconds"])
         finally:
             comm_analysis.COUNTER.sync = False
         out = {"history": eng.history, "host_ms": host_ms,
                "wire_bytes": wire, "comm_ms": comm_ms,
                "gather_ms": gather_ms, "act_ms": act_ms,
+               "norm_ms": norm_ms, "partial_ms": partial_ms,
                "stored_bytes": stored,
                "launches": {k: c.count for k, c in COUNTERS.items()},
                "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
@@ -407,6 +421,9 @@ def _tp_case(kind: str, c: Dict[str, Any], world: int, index: int
         y = tensor_parallel.reduce_from_model(grad_of("a", c["x"]) * c_r)
         z = tensor_parallel.copy_to_model(grad_of("b", c["x"])) * c_r
         out = torch.stack([y, z])
+    elif kind == "sum_over":
+        c_r = float(index + 1)
+        out = tensor_parallel.sum_over_model(grad_of("a", c["x"]) * c_r) * c_r
     elif kind == "embed":
         table = _local_part("embed", c["table"], world, index)
         out = layers.embed(grad_of("table", table), c["tokens"], True)
@@ -420,6 +437,21 @@ def _tp_case(kind: str, c: Dict[str, Any], world: int, index: int
         p = {k: grad_of(k, _local_part(k, w, world, index))
              for k, w in c["p"].items()}
         out = layers.mlp(p, grad_of("x", c["x"]), c["act"], True)
+    elif kind == "ssm":
+        # a Mamba2 block: out_proj's rows and gate_norm's scale are the
+        # rank's heads' when ``split``, every other leaf whole
+        p = {}
+        for k, w in c["p"].items():
+            t = w["scale"] if isinstance(w, dict) else w
+            dim = tensor_parallel.SSM_TP_DIM.get(
+                "scale" if isinstance(w, dict) else k)
+            if c["split"] and dim is not None:
+                n = t.shape[dim] // world
+                t = t.narrow(dim, index * n, n)
+            t = grad_of(k, t.clone())
+            p[k] = {"scale": t} if isinstance(w, dict) else t
+        out = ssm_mod.ssm_forward(p, grad_of("x", c["x"]), c["d"], c["cfg"],
+                                  split=c["split"])
     else:
         p = {}
         for k, w in c["p"].items():
@@ -450,15 +482,17 @@ def tensor_parallel_program(rank: int, world: int, job: Dict[str, Any],
     """``job["cases"]`` [(kind, inputs)] on mesh (model ``world``),
     inside ``sharded_compute`` with the head split (so
     ``layers.softmax_xent`` hands off to ``vocab_parallel_xent``): each
-    case's output and gradients on this rank (``_tp_case``), and the
-    activation collectives' count."""
+    case's output, gradients and activation collectives on this rank
+    (``_tp_case``), and the activation collectives' count."""
     mesh = Mesh((world,), ("model",))
     out: Dict[str, Any] = {"rank": rank, "cases": []}
     with mesh, tensor_parallel.sharded_compute(mesh, (), (), head=True):
         tensor_parallel.reset_activation()
         for kind, c in job["cases"]:
+            before = tensor_parallel.ACTIVATION["calls"]
             res = _tp_case(kind, _tensors_to(c, dev), world,
                            mesh.chunk_index("model", rank))
+            res["calls"] = tensor_parallel.ACTIVATION["calls"] - before
             out["cases"].append(_tensors_to(res, torch.device("cpu")))
         out["calls"] = tensor_parallel.ACTIVATION["calls"]
     return out

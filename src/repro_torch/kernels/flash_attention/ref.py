@@ -11,19 +11,25 @@ gives them. The CPU path of ``ops.flash_attention`` and the comparison
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B,H,S,D), k/v: (B,K,T,D) -> (B,H,S,D) in q's dtype; f32 math."""
+                  causal: bool = True, window: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,H,S,D), k/v: (B,K,T,D) -> (B,H,S,D) in q's dtype; f32 math.
+    ``scale`` (default ``D**-0.5``): the wrapper's shape plan passes the
+    true D's when it has zero-padded D."""
     B, H, S, D = q.shape
     K, T = k.shape[1], k.shape[2]
     G = H // K
     qf = q.float().reshape(B, K, G, S, D)
-    s = torch.einsum("bkgsd,bktd->bkgst", qf, k.float()) * (D ** -0.5)
+    s = torch.einsum("bkgsd,bktd->bkgst", qf, k.float()) * (
+        D ** -0.5 if scale is None else scale)
     q_pos = torch.arange(S, device=q.device)[:, None]
     k_pos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)

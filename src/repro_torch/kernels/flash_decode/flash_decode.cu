@@ -41,7 +41,10 @@
 //   - Warp w owns query heads w, w+4, ... of the GQA group: it computes
 //     their scores (8 lanes per key, each over D/8 of the dot, a 3-step
 //     shuffle reduce), runs their online softmax with one key per lane,
-//     and keeps acc for them in registers (lane owns d = lane + 32 e).
+//     and keeps acc for them in registers (lane owns d = lane + 32 e: 2,
+//     4 or 8 values for D up to 64, 128 or 256). At D = 256 in float32 the
+//     ring alone is 195 KiB, so the wrapper launches at most 27 query
+//     heads per KV head at a time (a larger group is cut into pieces).
 //   - Each split writes its partial (m, l, acc) in float32 to scratch the
 //     wrapper allocates; a second small kernel (grid K x B) merges a
 //     row's splits in split order, with the same alpha guard for a split
@@ -130,6 +133,11 @@ __device__ __forceinline__ float warp_sum(float x) {
 // K/V row stride in shared memory, bytes: one 16-byte pad per row
 __host__ __device__ __forceinline__ int row_bytes(int D, int esize) {
   return D * esize + 16;
+}
+
+// query heads per warp for G heads per KV head (the dispatch's GW)
+int heads_per_warp(int G) {
+  return G <= 4 ? 1 : G <= 8 ? 2 : G <= 16 ? 4 : 8;
 }
 
 size_t smem_bytes(int G, int D, int esize, int GW) {
@@ -444,7 +452,11 @@ cudaError_t dispatch_dv(bool whole16, const void* q, const void* kpool,
     return dispatch_pb<T, GW, 2>(whole16, q, kpool, vpool, page_map, pos,
                                  live, part, B, H, K, D, N, ps, P, R, S,
                                  scale, s);
-  return dispatch_pb<T, GW, 4>(whole16, q, kpool, vpool, page_map, pos, live,
+  if (D <= 128)
+    return dispatch_pb<T, GW, 4>(whole16, q, kpool, vpool, page_map, pos,
+                                 live, part, B, H, K, D, N, ps, P, R, S,
+                                 scale, s);
+  return dispatch_pb<T, GW, 8>(whole16, q, kpool, vpool, page_map, pos, live,
                                part, B, H, K, D, N, ps, P, R, S, scale, s);
 }
 
@@ -502,11 +514,18 @@ extern "C" {
 // Keys per tile: the wrapper's split length R must be a multiple of it.
 int flash_decode_tile_keys() { return kTK; }
 
+// Dynamic shared memory of the split pass at G query heads per KV head,
+// head dim D and `esize`-byte K/V values.
+long long flash_decode_smem_bytes(int G, int D, int esize) {
+  return (long long)smem_bytes(G, D, esize, heads_per_warp(G));
+}
+
 // Launch the split pass and the combine on `stream` of card `device`;
 // returns cudaGetLastError() (0 on success). `part` is float32 scratch of
 // B*K*S*G*(D+2) values, S = ceil(P*ps / R). The wrapper has checked the
-// shapes, G = H/K <= 32, D % 4 == 0 and D <= 128, B and K <= 65535,
-// 8-byte aligned pools and R a positive multiple of the tile.
+// shapes, G = H/K <= 32 with the split pass within shared memory,
+// D % 4 == 0 and D <= 256, B and K <= 65535, 8-byte aligned pools and R a
+// positive multiple of the tile.
 int flash_decode_launch(const void* q, const void* kpool, const void* vpool,
                         const void* page_map, const void* pos,
                         const void* live, void* out, void* part, int B,

@@ -9,6 +9,8 @@ path of ``ops.flash_decode`` and the comparison in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
@@ -16,10 +18,13 @@ NEG_INF = -1e30
 
 def flash_decode_ref(q: torch.Tensor, kpool: torch.Tensor,
                      vpool: torch.Tensor, page_map: torch.Tensor,
-                     pos: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor, live: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,H,D); kpool/vpool: (N,ps,K,D); page_map: (B,P) int with
     entries >= N meaning 'no page'; pos: (B,) last valid position per
-    row; live: (B,) int/bool row mask -> (B,H,D) in q's dtype."""
+    row; live: (B,) int/bool row mask -> (B,H,D) in q's dtype.
+    ``scale`` (default ``D**-0.5``): the wrapper's shape plan passes the
+    true D's when it has zero-padded D."""
     B, H, D = q.shape
     N, ps, K, _ = kpool.shape
     P = page_map.shape[1]
@@ -33,7 +38,8 @@ def flash_decode_ref(q: torch.Tensor, kpool: torch.Tensor,
     valid = (t[None, :] <= pos.long()[:, None]) & page_ok \
         & (live.long() != 0)[:, None]
     qf = q.float().reshape(B, K, G, D)
-    s = torch.einsum("bkgd,btkd->bkgt", qf, k) * (D ** -0.5)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k) * (
+        D ** -0.5 if scale is None else scale)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v)

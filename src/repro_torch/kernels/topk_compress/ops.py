@@ -10,12 +10,14 @@ falls back to the plain version on the card. ``BLOCK_TOPK_COUNTER`` and
 ``COUNTER`` count kernel launches (and only those). Both kernels do the
 JAX wrappers' tail padding themselves (they read the buffers in place
 and treat columns past n as zeros), so the card path copies nothing.
+The fused kernel takes rows of any width: one warp per row up to
+``WARP_BLOCK_W``, one block of threads per row past it.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -28,11 +30,10 @@ SOURCE = Path(__file__).with_name("topk_compress.cu")
 BLOCK_TOPK_SOURCE = Path(__file__).with_name("block_topk.cu")
 COUNTER = launch_counter("fused_compress")
 BLOCK_TOPK_COUNTER = launch_counter("block_topk")
-# the CUDA kernel's widest block: 32 lanes x 32 registers per lane. The
-# plain version takes any width; no config uses more than 128
-# (``GradientCompressor.block_w``), so the card refuses wider blocks
-# rather than carrying a second kernel path
-MAX_BLOCK_W = 1024
+# rows up to this width run one warp each (32 lanes x 32 registers); a
+# wider row runs one block of threads (``topk_compress.cu``)
+WARP_BLOCK_W = 1024
+_INDEX_LIMIT = 2 ** 31         # a worker's global indices are int32
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -57,10 +58,6 @@ def _check(g: torch.Tensor, r: torch.Tensor, k: int, block_w: int) -> None:
     if block_w < 1:
         raise ValueError(f"fused_block_topk_batched: block_w={block_w} must "
                          f"be >= 1")
-    if g.device.type != "cpu" and block_w > MAX_BLOCK_W:
-        raise ValueError(f"fused_block_topk_batched: block_w={block_w} must "
-                         f"lie in [1, {MAX_BLOCK_W}] for the CUDA kernel "
-                         f"(the CPU's plain version takes any width)")
     if k < 1:
         raise ValueError(f"fused_block_topk_batched: k={k} must be >= 1")
 
@@ -75,17 +72,34 @@ def fused_block_topk_batched(g: torch.Tensor, r: torch.Tensor, *, k: int,
     indices address its own (n,) buffer — and residuals (W, n) f32), with
     R = ceil(n / block_w) and k clamped to block_w."""
     _check(g, r, k, block_w)
-    k = min(k, block_w)
     if g.device.type == "cpu":
-        return fused_block_topk_batched_ref(g, r, k=k, block_w=block_w)
+        return fused_block_topk_batched_ref(g, r, k=min(k, block_w),
+                                            block_w=block_w)
     if g.device.type != "cuda":
         raise ValueError(f"fused_block_topk_batched: unsupported device "
                          f"{g.device}")
+    return plan(_launch, g, r, k, block_w)
+
+
+def plan(launch: Callable, g: torch.Tensor, r: torch.Tensor, k: int,
+         block_w: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The shape plan around ``launch(g, r, k, block_w)``: k clamped to
+    the row, and the one refusal, a worker's indices past int32. Rows of
+    any width are one launch (the kernel picks its warp or block path by
+    width); the CPU tests drive it with the plain version."""
+    n = g.shape[1]
+    if -(-n // block_w) * block_w > _INDEX_LIMIT:
+        raise ValueError(f"fused_block_topk_batched: {-(-n // block_w)} "
+                         f"rows of {block_w} overflow a worker's int32 "
+                         f"index space")
+    return launch(g, r, min(k, block_w), block_w)
+
+
+def _launch(g: torch.Tensor, r: torch.Tensor, k: int, block_w: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One kernel launch over every worker."""
     Wk, n = g.shape
     R = -(-n // block_w)
-    if Wk * R * block_w >= 2 ** 31:
-        raise ValueError(f"fused_block_topk_batched: {Wk} x {R} rows of "
-                         f"{block_w} overflow the int32 index space")
     g = g.float().contiguous()
     r = r.float().contiguous()
     vals = torch.empty((Wk, R, k), dtype=torch.float32, device=g.device)

@@ -50,6 +50,19 @@
 //   - a grid-stride loop over rows with 8 warps per block.
 // Vector loads, several rows per warp and a shared-memory staged epilogue
 // come later.
+//
+// Rows wider than 1024 (32 registers a lane) take a second path,
+// `fused_compress_wide_kernel`: one block of 512 threads per row (a
+// grid-stride loop over rows). Thread t owns columns t, t+512, ... of
+// c = g + r, staged in shared memory while the row fits (W <= 57,856
+// floats, 227 KiB); a wider row works in place in `res`, which it fills
+// with c first and re-reads on every round. Each round, each thread
+// finds its best (|v|, column) with the same strict `>` over increasing
+// columns, a shuffle reduction orders the 32 lanes' pairs and a second
+// one the 16 warps' pairs by (|v| descending, column ascending); thread
+// 0 emits the winner and zeroes it, and a barrier ends the round. The
+// zero tail padding of the last row is not stored: a pad column only
+// ties at 0 with lower real columns, so it is never the first maximum.
 
 #include <cuda_runtime.h>
 
@@ -141,6 +154,122 @@ fused_compress_kernel(const float* __restrict__ g,
   }
 }
 
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kSmemBlock = 232448;   // a Hopper block's shared memory
+constexpr int kWideStatic = 1024;    // room kept for the static arrays
+
+// (bm, bi) becomes the better of itself and (om, oi): larger |v|, then
+// the lower column
+__device__ __forceinline__ void take_better(float& bm, int& bi, float om,
+                                            int oi) {
+  if (om > bm || (om == bm && oi < bi)) {
+    bm = om;
+    bi = oi;
+  }
+}
+
+__device__ __forceinline__ void warp_best(float& bm, int& bi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    take_better(bm, bi, __shfl_xor_sync(kFull, bm, off),
+                __shfl_xor_sync(kFull, bi, off));
+}
+
+// STAGED: the row's c lives in dynamic shared memory (W floats); else in
+// res, in place.
+template <bool STAGED>
+__global__ void __launch_bounds__(kWideThreads)
+fused_compress_wide_kernel(const float* __restrict__ g,
+                           const float* __restrict__ r,
+                           float* __restrict__ vals, int* __restrict__ idx,
+                           float* __restrict__ res, long long n, int R, int W,
+                           int k, long long rows) {
+  extern __shared__ __align__(16) float c_s[];
+  __shared__ float warp_m[kWideWarps];
+  __shared__ int warp_i[kWideWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long w = row / R;
+    const int rr = (int)(row - w * R);
+    const long long col0 = (long long)rr * W;
+    const size_t base = (size_t)w * (size_t)n + (size_t)col0;
+    // columns of this row inside n; the rest are zero padding
+    const int valid = (int)(n - col0 < W ? n - col0 : W);
+    float* c = STAGED ? c_s : res + base;
+    bool nan_here = false;
+    for (int j = tid; j < valid; j += kWideThreads) {
+      const float v = g[base + j] + r[base + j];
+      nan_here |= isnan(v);
+      c[j] = v;
+    }
+    const bool row_nan = __syncthreads_or(nan_here) != 0;
+    float* vrow = vals + row * k;
+    int* irow = idx + row * k;
+    for (int t = 0; t < k; ++t) {
+      if (row_nan) {                 // uniform over the block
+        if (tid == 0) {
+          vrow[t] = 0.0f;
+          irow[t] = (int)col0;
+        }
+        continue;
+      }
+      float bm = -1.0f;              // below any |v|
+      int bi = INT_MAX;
+      for (int j = tid; j < valid; j += kWideThreads) {
+        const float m = fabsf(c[j]);
+        if (m > bm) {
+          bm = m;
+          bi = j;
+        }
+      }
+      warp_best(bm, bi);
+      if (lane == 0) {
+        warp_m[warp] = bm;
+        warp_i[warp] = bi;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        bm = lane < kWideWarps ? warp_m[lane] : -1.0f;
+        bi = lane < kWideWarps ? warp_i[lane] : INT_MAX;
+        warp_best(bm, bi);
+        if (lane == 0) {
+          vrow[t] = c[bi] + 0.0f;
+          irow[t] = (int)col0 + bi;
+          c[bi] = 0.0f;
+        }
+      }
+      __syncthreads();               // the pick is zeroed for every thread
+    }
+    if (STAGED) {
+      for (int j = tid; j < valid; j += kWideThreads) res[base + j] = c_s[j];
+      __syncthreads();               // the buffer is the next row's
+    }
+  }
+}
+
+cudaError_t launch_wide(const float* g, const float* r, float* vals,
+                        int* idx, float* res, long long n, int R, int W,
+                        int k, long long rows, cudaStream_t s) {
+  long long blocks = rows < 132LL * 16 ? rows : 132LL * 16;
+  const long long bytes = 4LL * W;
+  if (bytes + kWideStatic <= kSmemBlock) {
+    auto kern = fused_compress_wide_kernel<true>;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (attr != cudaSuccess) return attr;
+    kern<<<(unsigned)blocks, kWideThreads, (size_t)bytes, s>>>(
+        g, r, vals, idx, res, n, R, W, k, rows);
+  } else {
+    fused_compress_wide_kernel<false><<<(unsigned)blocks, kWideThreads, 0,
+                                        s>>>(g, r, vals, idx, res, n, R, W,
+                                             k, rows);
+  }
+  return cudaGetLastError();
+}
+
 template <int E>
 cudaError_t launch(const float* g, const float* r, float* vals, int* idx,
                    float* res, long long n, int R, int W, int k,
@@ -157,8 +286,8 @@ cudaError_t launch(const float* g, const float* r, float* vals, int* idx,
 extern "C" {
 
 // Launch on `stream` of card `device`; returns a cudaError_t (0 on
-// success). The wrapper has checked 1 <= W <= 1024, 1 <= k <= W and
-// n_workers * R * W < 2^31.
+// success). The wrapper has checked W >= 1, 1 <= k <= W and R * W <= 2^31
+// (a worker's indices are int32).
 int fused_compress_launch(const void* g, const void* r, void* vals,
                           void* idx, void* res, long long n, int n_workers,
                           int W, int k, int device, void* stream) {
@@ -175,7 +304,9 @@ int fused_compress_launch(const void* g, const void* r, void* vals,
   float* qp = static_cast<float*>(res);
   const int per_lane = (W + 31) / 32;
   cudaError_t err;
-  if (per_lane <= 1) {
+  if (per_lane > 32) {
+    err = launch_wide(gp, rp, vp, ip, qp, n, R, W, k, rows, s);
+  } else if (per_lane <= 1) {
     err = launch<1>(gp, rp, vp, ip, qp, n, R, W, k, rows, s);
   } else if (per_lane <= 2) {
     err = launch<2>(gp, rp, vp, ip, qp, n, R, W, k, rows, s);

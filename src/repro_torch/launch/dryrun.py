@@ -67,7 +67,7 @@ from repro_torch.distributed.sharding import (NamedSharding, P, batch_axis,
                                               batch_spec, cache_specs,
                                               local_shape, param_specs,
                                               parse_layout)
-from repro_torch.distributed.tensor_parallel import (KV_REPLICATED,
+from repro_torch.distributed.tensor_parallel import (KV_REPLICATED, is_ssm,
                                                      kv_heads_read)
 from repro_torch.launch.mesh import (HBM_BW, ICI_BW, PEAK_FLOPS_BF16, Mesh,
                                      make_production_mesh)
@@ -136,12 +136,28 @@ def _batch_bytes(batch, mesh: Mesh, B: int, layout) -> int:
     return local_bytes(batch, tree_map(lambda s: s.spec, sh), mesh)
 
 
+def ssm_column_share(name: str, cfg, m: int) -> float:
+    """The share of a split Mamba2 block's gathered leaf ``name`` that one
+    rank reads: its heads' z, x and dt columns and B and C whole of
+    ``in_proj``, its heads' x channels and B and C of the conv, 1 / m of
+    the per-head leaves."""
+    s, d = cfg.ssm, cfg.d_model
+    di, nh, gN = s.d_inner(d), s.n_heads(d), s.n_groups * s.d_state
+    if name == "in_proj":
+        return (2 * di / m + 2 * gN + nh / m) / (2 * di + 2 * gN + nh)
+    if name in ("conv_w", "conv_b"):
+        return (di / m + 2 * gN) / (di + 2 * gN)
+    return 1.0 / m
+
+
 def train_flops_share(params, plan: ComputePlan, cfg, m: int) -> float:
     """The share of a train step's model FLOPs that one rank of a batch
     group computes: each leaf's active parameters (an expert leaf's
     times k / E) weighted by 1 / m where its block splits over ``model``,
     by the share of KV heads the rank's query heads read for a
-    replicated KV projection in a split attention, else 1."""
+    replicated KV projection in a split attention, by the share of
+    columns the rank reads for a gathered leaf of a split Mamba2 block
+    (``ssm_column_share``), else 1."""
     moe = cfg.moe
     num = den = 0.0
     for path, leaf in tree_paths(params):
@@ -153,7 +169,9 @@ def train_flops_share(params, plan: ComputePlan, cfg, m: int) -> float:
             share = 1.0 / m
         elif path in plan.partial:
             share = 1.0 / m
-            if path[-1] in KV_REPLICATED:
+            if is_ssm(path):
+                share = ssm_column_share(path[-1], cfg, m)
+            elif path[-1] in KV_REPLICATED:
                 heads, _ = kv_heads_read(0, cfg.n_heads // m,
                                          cfg.n_heads // cfg.n_kv_heads)
                 share = len(heads) / cfg.n_kv_heads
@@ -202,7 +220,7 @@ def run_dryrun(arch: Union[str, ArchConfig], shape: Union[str, InputShape], *,
         coll = step_collectives(params_abs, st_specs["params"], mesh, bentry,
                                 act=(cfg, B // split, shape.seq_len),
                                 remat=remat)
-        plan = compute_plan([(p, x.dim()) for p, x in tree_paths(
+        plan = compute_plan([(p, x.shape) for p, x in tree_paths(
             params_abs)], st_specs["params"], mesh)
         share = train_flops_share(params_abs, plan, cfg,
                                   mesh.shape.get("model", 1))

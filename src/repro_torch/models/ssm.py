@@ -13,6 +13,13 @@ one group (B/C shared across heads). in_proj packs
 causal depthwise conv (width d_conv) and SiLU. The scan math runs in
 float32 whatever the model's dtype; ``A_log``, ``D`` and ``dt_bias``
 are float32 leaves.
+
+In a sharded step a block whose heads divide over ``model`` computes
+the rank's heads (``ssm_forward(split=True)``): the block's input goes
+through ``copy_to_model``, ``out_proj``'s partial through
+``reduce_from_model``, and the gated norm's sum of squares is summed
+over ``model``; decode and prefill never split, as the reference's
+sharded path trains only.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.layers import Init, f32, rmsnorm
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models.layers import Init, as_dtype, f32, rmsnorm
 
 Params = Dict[str, Any]
 
@@ -48,8 +56,13 @@ def init_ssm(init: Init, path: str, d: int, cfg: SSMConfig, dtype,
     }
 
 
-def _split_proj(proj: torch.Tensor, d: int, cfg: SSMConfig):
-    di = cfg.d_inner(d)
+def _dims(d: int, cfg: SSMConfig, m: int = 1) -> Tuple[int, int]:
+    """(d_inner, heads) a rank computes: of m ranks' equal shares."""
+    return cfg.d_inner(d) // m, cfg.n_heads(d) // m
+
+
+def _split_proj(proj: torch.Tensor, dims: Tuple[int, int], cfg: SSMConfig):
+    di = dims[0]
     gN = cfg.n_groups * cfg.d_state
     return (proj[..., :di], proj[..., di:2 * di + 2 * gN],
             proj[..., 2 * di + 2 * gN:])                    # z, [x|B|C], dt
@@ -67,11 +80,11 @@ def causal_conv(w: torch.Tensor, b: torch.Tensor,
     return out + b
 
 
-def _xbc_split(xc: torch.Tensor, d: int, cfg: SSMConfig):
-    di = cfg.d_inner(d)
+def _xbc_split(xc: torch.Tensor, dims: Tuple[int, int], cfg: SSMConfig):
+    di, nh = dims
     gN = cfg.n_groups * cfg.d_state
     shp = xc.shape[:-1]
-    xs = xc[..., :di].reshape(*shp, cfg.n_heads(d), cfg.head_dim)
+    xs = xc[..., :di].reshape(*shp, nh, cfg.head_dim)
     Bm = xc[..., di:di + gN].reshape(*shp, cfg.n_groups, cfg.d_state)
     Cm = xc[..., di + gN:].reshape(*shp, cfg.n_groups, cfg.d_state)
     return xs, Bm, Cm
@@ -187,25 +200,74 @@ def init_ssm_state(batch: int, d: int, cfg: SSMConfig, dtype,
 
 
 def _pre_core(p: Params, proj: torch.Tensor, conv_out: torch.Tensor,
-              d: int, cfg: SSMConfig):
-    z, _, dt_raw = _split_proj(proj, d, cfg)
-    xs, Bm, Cm = _xbc_split(F.silu(conv_out), d, cfg)
+              dims: Tuple[int, int], cfg: SSMConfig):
+    z, _, dt_raw = _split_proj(proj, dims, cfg)
+    xs, Bm, Cm = _xbc_split(F.silu(conv_out), dims, cfg)
     dt = F.softplus(f32(dt_raw) + p["dt_bias"])
     return z, xs, Bm, Cm, dt, -torch.exp(p["A_log"])
 
 
+def _gated_norm(p: Params, u: torch.Tensor, split: bool) -> torch.Tensor:
+    """``rmsnorm(gate_norm, u)``; ``split``: u holds the rank's d_inner /
+    m columns, and the mean of squares is over every rank's
+    (``tensor_parallel.sum_over_model``)."""
+    if not split:
+        return rmsnorm(p["gate_norm"], u)
+    orig = u.dtype
+    uf = f32(u)
+    ss = tp.sum_over_model(torch.sum(torch.square(uf), dim=-1, keepdim=True))
+    var = ss / (uf.shape[-1] * tp.current().size)
+    return as_dtype(uf * torch.rsqrt(var + 1e-5)
+                    * f32(p["gate_norm"]["scale"]), orig)
+
+
 def _post_core(p: Params, y: torch.Tensor, xs: torch.Tensor,
-               z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Skip term, gate, norm and out_proj: y (B,S,nh,hd) f32 -> (B,S,d)."""
+               z: torch.Tensor, x: torch.Tensor,
+               split: bool = False) -> torch.Tensor:
+    """Skip term, gate, norm and out_proj: y (B,S,nh,hd) f32 -> (B,S,d);
+    ``split``: the rank's heads, whose partial ``reduce_from_model``
+    sums."""
     y = y + p["D"][:, None] * f32(xs)
     y = y.reshape(*x.shape[:-1], -1).to(x.dtype)
-    return rmsnorm(p["gate_norm"], y * F.silu(z)) @ p["out_proj"]
+    out = _gated_norm(p, y * F.silu(z), split) @ p["out_proj"]
+    return tp.reduce_from_model(out) if split else out
+
+
+def _local(p: Params, d: int, cfg: SSMConfig) -> Params:
+    """A split block's leaves as this rank reads them (heads h0 .. h1-1,
+    ``tensor_parallel.local_heads``): the heads' z, x and dt columns of
+    ``in_proj`` and B and C whole; the heads' x channels of the conv and
+    B and C; the heads' ``A_log``, ``D`` and ``dt_bias``. ``out_proj``
+    and ``gate_norm`` hold the rank's rows already."""
+    di, nh = _dims(d, cfg)
+    hd, gN = cfg.head_dim, cfg.n_groups * cfg.d_state
+    h0, h1 = tp.local_heads(nh)
+
+    def cols(w, spans):
+        return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+    xcols = (h0 * hd, h1 * hd)
+    conv = [xcols, (di, di + 2 * gN)]
+    return {**p, "in_proj": cols(p["in_proj"], [
+                xcols, (di + h0 * hd, di + h1 * hd),
+                (2 * di, 2 * di + 2 * gN),
+                (2 * di + 2 * gN + h0, 2 * di + 2 * gN + h1)]),
+            "conv_w": cols(p["conv_w"], conv),
+            "conv_b": cols(p["conv_b"], conv),
+            "A_log": p["A_log"][h0:h1], "D": p["D"][h0:h1],
+            "dt_bias": p["dt_bias"][h0:h1]}
 
 
 def ssm_forward(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig,
-                sequential: bool = False) -> torch.Tensor:
-    """Training-path full-sequence forward (no state). x: (B,S,d)."""
-    return _ssm_seq(p, x, d, cfg, sequential)[0]
+                sequential: bool = False, split: bool = False
+                ) -> torch.Tensor:
+    """Training-path full-sequence forward (no state). x: (B,S,d).
+    ``split`` (a sharded step, ``distributed/tensor_parallel.py``): the
+    block computes this rank's heads; ``out_proj`` and ``gate_norm`` hold
+    its rows, the other leaves are whole."""
+    if split:
+        p = _local(p, d, cfg)
+        x = tp.copy_to_model(x)
+    return _ssm_seq(p, x, d, cfg, sequential, split)[0]
 
 
 def ssm_prefill(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig
@@ -214,16 +276,17 @@ def ssm_prefill(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig
     return _ssm_seq(p, x, d, cfg, False)
 
 
-def _ssm_seq(p, x, d, cfg, sequential):
+def _ssm_seq(p, x, d, cfg, sequential, split=False):
+    dims = _dims(d, cfg, tp.current().size if split else 1)
     proj = x @ p["in_proj"]
-    _, xc, _ = _split_proj(proj, d, cfg)
+    _, xc, _ = _split_proj(proj, dims, cfg)
     z, xs, Bm, Cm, dt, A = _pre_core(
-        p, proj, causal_conv(p["conv_w"], p["conv_b"], xc), d, cfg)
+        p, proj, causal_conv(p["conv_w"], p["conv_b"], xc), dims, cfg)
     if sequential:
         y, h = ssd_sequential(xs, dt, A, Bm, Cm)
     else:
         y, h = ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.chunk)
-    return _post_core(p, y, xs, z, x), \
+    return _post_core(p, y, xs, z, x, split), \
         {"h": h, "conv": xc[:, -(cfg.d_conv - 1):, :]}
 
 
@@ -232,14 +295,16 @@ def ssm_decode(p: Params, x: torch.Tensor, state: Params, d: int,
     """One-token decode. x: (B,1,d); state {h (B,nh,hd,N), conv
     (B,W-1,C)}. The conv sums its taps in ``causal_conv``'s order, so it
     gives the prefill's bits for the same inputs."""
+    dims = _dims(d, cfg)
     proj = x @ p["in_proj"]                                 # (B,1,P)
-    _, xc, _ = _split_proj(proj, d, cfg)
+    _, xc, _ = _split_proj(proj, dims, cfg)
     hist = torch.cat([state["conv"], xc], dim=1)            # (B,W,C)
     w = p["conv_w"]
     conv_out = 0
     for i in range(w.shape[0]):
         conv_out = conv_out + hist[:, i:i + 1, :] * w[i]
-    z, xs, Bm, Cm, dt, A = _pre_core(p, proj, conv_out + p["conv_b"], d, cfg)
+    z, xs, Bm, Cm, dt, A = _pre_core(p, proj, conv_out + p["conv_b"], dims,
+                                     cfg)
     h, y = _recur(state["h"], f32(xs[:, 0]), dt[:, 0], A,
                   f32(Bm[:, 0, 0, :]), f32(Cm[:, 0, 0, :]))
     return _post_core(p, y[:, None], xs, z, x), \

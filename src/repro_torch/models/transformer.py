@@ -333,17 +333,19 @@ def apply_moe_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     return x, aux[0]
 
 
-def apply_ssm_block(bp: Params, x: torch.Tensor,
-                    cfg: ArchConfig) -> torch.Tensor:
+def apply_ssm_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
+                    path: Tuple[str, ...] = ("blocks",)) -> torch.Tensor:
     h = rmsnorm(bp["ln"], x, cfg.norm_eps)
-    return x + ssm_mod.ssm_forward(bp["ssm"], h, cfg.d_model, cfg.ssm)
+    return x + ssm_mod.ssm_forward(
+        bp["ssm"], h, cfg.d_model, cfg.ssm,
+        split=tp.is_split(path + ("ssm", "out_proj")))
 
 
 def _apply_super(sp: Params, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
     """A hybrid super-block: P-1 SSM blocks, then an attention block."""
     for j in range(cfg.hybrid_attn_period - 1):
-        x = apply_ssm_block(layer(sp["ssm"], j), x, cfg)
+        x = apply_ssm_block(layer(sp["ssm"], j), x, cfg, ("super", "ssm"))
     return apply_attn_block(sp["attn"], x, positions, cfg,
                             path=("super", "attn"))
 
@@ -472,7 +474,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             x = run(_apply_super, layer(params["super"], s), x, positions,
                     cfg)
         for i in range(nt):
-            x = run(apply_ssm_block, layer(params["tail"], i), x, cfg)
+            x = run(apply_ssm_block, layer(params["tail"], i), x, cfg,
+                    ("tail",))
     if cfg.arch_type == "vlm":                       # the text columns
         x = x[:, -tokens.shape[1]:]
     return _head(params, cfg, x), aux

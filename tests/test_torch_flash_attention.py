@@ -315,3 +315,54 @@ def test_bf16_rows_within_row_bound_and_a_dropped_tile_is_not():
     p = torch.softmax(torch.where(keep, s, torch.full_like(s, -1e30)), -1)
     dropped = (p @ v.float()).bfloat16()
     assert _row_err(dropped, want) > 10 * 2.0 ** -6
+
+
+# ---------------------------------------------------------------------------
+# the CUDA route's shape plan (``ops.plan``): D outside the built widths
+# zero-padded with the true D's scale, B and H cut to the grid
+# ---------------------------------------------------------------------------
+# B, H, K, S, D, grid limit: zamba2-7b's D 112, D 80, and pieces of heads
+# (whole groups, and slices of one group wider than the limit) and rows
+PLAN_CASES = [(1, 4, 2, 64, 112, 65535), (2, 4, 4, 48, 80, 65535),
+              (3, 6, 2, 17, 80, 2), (2, 8, 1, 9, 16, 3),
+              (2, 6, 3, 20, 48, 4)]
+
+
+@pytest.mark.parametrize("D", [112, 80])
+def test_plain_matches_pallas_kernel_at_unbuilt_head_dims(D):
+    """D 112 (zamba2-7b: 3584 / 32) and D 80, which the kernel takes
+    zero-padded to 128: the plain version against the Pallas kernel."""
+    q, k, v = _mk(D, 1, 4, 2, 64, 64, D)
+    want = _jax(j_flash, q, k, v, causal=True, block_q=32, block_k=32,
+                interpret=True)
+    assert _err(_port(q, k, v), want) < 2e-5
+
+
+def _plain_launch(q, k, v, causal, window, scale):
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    assert q.shape[-1] in HEAD_DIMS and q.shape[1] % k.shape[1] == 0
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+@pytest.mark.parametrize("B,H,K,S,D,limit", PLAN_CASES)
+def test_shape_plan_driven_by_the_plain_version(B, H, K, S, D, limit):
+    """``plan`` with the plain version as its launch equals the plain
+    version at the true shape (2e-5), and every piece it launches has a
+    built D and at most ``limit`` heads and rows."""
+    from repro_torch.kernels.flash_attention.ops import plan
+    q, k, v = (torch.tensor(a) for a in _mk(B * D, B, H, K, S, S, D))
+    seen = []
+
+    def launch(q, k, v, causal, window, scale):
+        seen.append(q.shape[:2])
+        assert scale == D ** -0.5
+        return _plain_launch(q, k, v, causal, window, scale)
+    for causal, win in ((True, 0), (False, 5)):
+        got = plan(launch, q, k, v, causal, win, limit=limit)
+        want = attention_ref(q, k, v, causal=causal, window=win)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) < 2e-5
+    assert all(b <= limit and h <= limit for b, h in seen)
+    with pytest.raises(ValueError, match="D=288"):
+        plan(launch, *(torch.zeros(1, 1, 2, 288) for _ in range(3)),
+             True, 0)

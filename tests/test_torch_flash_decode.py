@@ -210,3 +210,49 @@ def test_int32_inputs_pass_through_and_others_are_converted():
         got = _int32(x)
         assert got.dtype == torch.int32 and got.is_contiguous()
         assert torch.equal(got, x.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA route's shape plan (``ops.plan``): D 256 (paligemma-3b's), a D
+# that is not a multiple of 4 zero-padded with the true D's scale, more
+# query heads per KV head than a launch takes, B and K cut to the grid
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,H,K,D", [(2, 8, 1, 256), (2, 40, 1, 32)])
+def test_plain_matches_pallas_at_d256_and_g40(B, H, K, D):
+    case = _case(H * D, B, H, K, D, 6, 8, 3)
+    assert np.abs(_torch(case) - _jax(case)).max() < TOL
+
+
+# B, H, K, D, grid limit, query heads per piece (None: the card's)
+PLAN_CASES = [(2, 8, 1, 256, 65535, None), (2, 64, 2, 256, 65535, None),
+              (3, 80, 2, 30, 2, None), (2, 40, 1, 64, 65535, 7),
+              (3, 6, 3, 16, 2, None)]
+
+
+@pytest.mark.parametrize("B,H,K,D,limit,max_g", PLAN_CASES)
+def test_shape_plan_driven_by_the_plain_version(B, H, K, D, limit, max_g):
+    """``plan`` with the plain version as its launch equals the plain
+    version (2e-5), and each piece it launches has D a multiple of 4, at
+    most ``limit`` rows and KV heads and at most ``max_g`` (or 32, the
+    card's shared memory permitting) query heads per KV head."""
+    from repro_torch.kernels.flash_decode.ops import (_MAX_G, _SMEM_LIMIT,
+                                                      plan, smem_bytes)
+    case = [torch.tensor(a) for a in _case(B + H + D, B, H, K, D, 6, 8, 3)]
+    seen = []
+
+    def launch(q, kp, vp, pm, pos, live, scale):
+        assert q.shape[-1] % 4 == 0 and scale == D ** -0.5
+        seen.append((q.shape[0], kp.shape[2], q.shape[1] // kp.shape[2]))
+        return t_flash_decode_ref(q, kp, vp, pm, pos, live, scale)
+    got = plan(launch, *case, limit=limit, max_g=max_g)
+    want = t_flash_decode_ref(*case)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) < TOL
+    for b, k, g in seen:
+        assert b <= limit and k <= limit and g <= (max_g or _MAX_G)
+        assert smem_bytes(g, D + (-D) % 4, 4) <= _SMEM_LIMIT
+    if D == 256 and H // K > 27:      # f32 at D 256: 27 heads fit
+        assert len(seen) == 2
+    with pytest.raises(ValueError, match="D=260"):
+        plan(launch, torch.zeros(1, 1, 260), *(torch.zeros(
+            2, 4, 1, 260) for _ in range(2)), *case[3:])

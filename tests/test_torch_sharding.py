@@ -340,15 +340,26 @@ def test_dryrun_useful_flops_ratio_follows_the_split_blocks():
     (heads, FF and vocab split; its 8 replicated KV heads are read 1 per
     rank); ``mlitb-lm-100m``'s 12 heads do not split over 16, so its
     attention stays replicated (0.26), and over (data 16, model 4) all
-    of it splits; ``mamba2-780m``'s SSM blocks and its 50 280-row vocab
-    do not split, so its ratio stays 1/16."""
-    def ratio(arch, mesh=None):
-        return dryrun.run_dryrun(arch, "train_4k",
-                                 mesh=mesh)["useful_flops_ratio"]
+    of it splits. The Mamba2 blocks split their heads (48 and 112 over
+    16): each rank reads 1/16 of ``out_proj``, ``gate_norm`` and the
+    per-head leaves, its heads' columns of ``in_proj`` and the conv with
+    B and C whole; ``mamba2-780m``'s 50 280-row tied vocab does not split
+    over 16, which holds it at 0.3508, and ``zamba2-7b`` reaches 0.9454.
+    Under the ``ssm_no_tp`` layout the SSM leaves are replicated over
+    ``model`` and both fall back to 1/16 and 0.0935."""
+    def ratio(arch, mesh=None, layout="baseline"):
+        return dryrun.run_dryrun(arch, "train_4k", mesh=mesh,
+                                 layout=layout)["useful_flops_ratio"]
     assert ratio("qwen3-4b") > 0.9
     assert ratio("mlitb-lm-100m", Mesh((16, 4), ("data", "model"))) > 0.9
     assert 0.25 < ratio("mlitb-lm-100m") < 0.3
-    assert ratio("mamba2-780m") == pytest.approx(1 / 16, rel=1e-12)
+    assert ratio("mamba2-780m") == pytest.approx(0.35082328652208283,
+                                                 rel=1e-9)
+    assert ratio("zamba2-7b") == pytest.approx(0.9454116593740827, rel=1e-9)
+    assert ratio("mamba2-780m", layout="ssm_no_tp") == pytest.approx(
+        1 / 16, rel=1e-12)
+    assert ratio("zamba2-7b", layout="ssm_no_tp") == pytest.approx(
+        0.09349770013562368, rel=1e-9)
 
 
 def test_dryrun_takes_moe_under_a_batch_split():

@@ -254,3 +254,64 @@ def test_mamba2_780m_head_count():
                 _split(args, 128, mm=_mm_3xtf32)):
         assert _err(got, oracle) < 5e-4
         assert _err(got, want) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the CUDA route's shape plan (``ops.plan``): hd zero-padded to a built
+# width or cut into slices of 128, N zero-padded to a multiple of 4, the
+# largest chunk <= 128 that fits shared memory, N cut into slices of 256
+# where no chunk of 16 fits, B cut to the grid
+# ---------------------------------------------------------------------------
+# B, S, nh, hd, N, chunk
+PLAN_PALLAS = [(1, 40, 2, 16, 16, 16), (1, 48, 2, 96, 16, 16),
+               (1, 40, 1, 160, 8, 16), (2, 40, 2, 32, 6, 16),
+               (1, 300, 1, 32, 8, 256), (1, 160, 1, 32, 256, 128)]
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", PLAN_PALLAS)
+def test_plain_matches_pallas_kernel_at_unbuilt_shapes(B, S, nh, hd, N,
+                                                       chunk):
+    """hd 16, 96 and 160, N 6, chunk 256 and N 256 at chunk 128: the
+    plain version against the Pallas kernel at the same chunk."""
+    args = _mk(hd + N, B, S, nh, hd, N)
+    tol = 1e-4 if S <= 128 else 5e-4
+    assert _err(_port(args, chunk=chunk),
+                _jax_kernel(args, chunk=chunk)) < tol
+
+
+# B, S, nh, hd, N, chunk, grid limit
+PLAN_CASES = [(2, 40, 3, 16, 6, 256, 65535), (1, 300, 2, 160, 6, 256, 65535),
+              (1, 200, 2, 96, 256, 128, 65535), (3, 33, 2, 32, 2, 8, 2),
+              (1, 70, 1, 32, 1200, 128, 65535)]
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk,limit", PLAN_CASES)
+def test_shape_plan_driven_by_the_plain_version(B, S, nh, hd, N, chunk,
+                                                limit):
+    """``plan`` with the plain version as its launch equals the plain
+    version at the caller's chunk within the card's tolerance, 5e-4 x
+    max(1, max|y| / 5), and each piece it launches is one the kernel
+    takes: hd built, N a multiple of 4, a chunk <= 128 within shared
+    memory, at most ``limit`` rows."""
+    from repro_torch.kernels.ssd_scan.ops import (_SMEM_LIMIT, HEAD_DIMS,
+                                                  plan, smem_bytes)
+    args = [torch.tensor(a) for a in _mk(hd * N, B, S, nh, hd, N)]
+    seen = []
+
+    def launch(x, dt, A, Bm, Cm, q):
+        Q = min(q, x.shape[1])
+        assert x.shape[-1] in HEAD_DIMS and Bm.shape[-1] % 4 == 0
+        assert Q <= 128 and x.shape[0] <= limit
+        assert smem_bytes(Q, Bm.shape[-1], x.shape[-1]) <= _SMEM_LIMIT
+        seen.append((x.shape[-1], Bm.shape[-1], Q))
+        return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=q)
+    got = plan(launch, *args, chunk=chunk, limit=limit)
+    want = ssd_scan_ref(*args, chunk=chunk)
+    scale = max(1.0, float(want.abs().max()) / 5)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 5e-4 * scale
+    assert seen
+    if N == 256:
+        assert {q for _, _, q in seen} == {64}  # 128 fits at no hd
+    if N == 1200:
+        assert {n for _, n, _ in seen} == {256, 176}

@@ -12,7 +12,9 @@ latter through ``layers.softmax_xent``'s hand-off) against
 masks; the column / row-parallel MLP (gated, and plain with biases);
 attention with sharded KV heads, with replicated KV heads read by a
 group of local query heads (and ``q_norm`` / ``k_norm``), and with
-replicated KV heads read one per local query head. Values and gradients
+replicated KV heads read one per local query head; a Mamba2 block split
+over its heads (``sum_over_model`` under its gated norm) and one whose
+heads do not divide, computed whole. Values and gradients
 within 1e-6 of max(1, their largest magnitude): a split leaf's gradient
 is the rank's part of the full one, a replicated leaf's the full one
 (summed over ranks where the rank holds only its heads' share), the
@@ -24,11 +26,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import SSMConfig  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
 from repro_torch.distributed.world import (spawn_world,  # noqa: E402
                                            tensor_parallel_program)
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 
 TOL = 1e-6
 WORLD = 2
@@ -88,9 +92,31 @@ def _cases():
         cases[f"attn-{name}"] = {
             "p": p, "x": x, "g": _rand(rs, B, S, D), "kv_split": kv_split,
             "positions": torch.arange(S, dtype=torch.int32)}
+    cases["sum_over"] = {"x": _rand(rs, 2, 3), "g": _rand(rs, 2, 3)}
+    for name, cfg in SSM_CFG.items():
+        di, nh, N = cfg.d_inner(D), cfg.n_heads(D), cfg.d_state
+        p = {"in_proj": _rand(rs, D, 2 * di + 2 * N + nh, scale=0.4),
+             "conv_w": _rand(rs, cfg.d_conv, di + 2 * N, scale=0.5),
+             "conv_b": _rand(rs, di + 2 * N, scale=0.1),
+             "A_log": torch.log(torch.linspace(1.0, 4.0, nh))
+             + _rand(rs, nh, scale=0.1),
+             "D": 1.0 + _rand(rs, nh, scale=0.1),
+             "dt_bias": _rand(rs, nh, scale=0.3),
+             "gate_norm": {"scale": 1.0 + _rand(rs, di, scale=0.1)},
+             "out_proj": _rand(rs, di, D, scale=0.4)}
+        cases[f"ssm-{name}"] = {"p": p, "x": x, "g": _rand(rs, B, S, D),
+                                "cfg": cfg, "d": D,
+                                "split": name == "split"}
     return cases
 
 
+# a Mamba2 block of 4 heads (split, 2 a rank) and of 3 (3 % 2 != 0: the
+# block is gathered whole and every rank computes every head); N 6, a
+# ragged last chunk of 1
+SSM_CFG = {"split": SSMConfig(d_state=6, d_conv=3, expand=2, head_dim=4,
+                              chunk=2),
+           "gathered": SSMConfig(d_state=6, d_conv=3, expand=3, head_dim=8,
+                                 chunk=2)}
 CASES = _cases()
 
 
@@ -259,6 +285,85 @@ def test_local_kv_heads_follow_the_query_heads():
             (0, (3, 3), ([0, 0, 1], False)), (1, (3, 3), ([1, 2, 2], False))):
         with tp.sharded_compute(_Ranked(rank), ()):
             assert tp.local_kv_heads(n_q, n_kv) == want, (rank, n_q, n_kv)
+
+
+def test_sum_over_model_reduces_forward_and_backward(world):
+    """The gated norm's statistic: an all-reduce forward, and of the
+    gradient in backward."""
+    res, _ = world
+    c = CASES["sum_over"]
+    for r, out in enumerate(res["sum_over"]):
+        c_r = float(r + 1)
+        _close(out["out"], 3.0 * c_r * c["x"], "forward: the sum")
+        _close(out["grads"]["a"], 3.0 * c_r * c["g"], "backward: the sum")
+        assert out["calls"] == 2
+
+
+@pytest.mark.parametrize("name", ["split", "gathered"])
+def test_split_ssm_block_matches_the_single_rank_block(world, name):
+    """A Mamba2 block on 2 ranks against the single-rank block: values,
+    the input's gradient (whole on every rank), ``out_proj``'s and
+    ``gate_norm``'s (the rank's rows), the gathered leaves' (in_proj,
+    conv, A_log, D, dt_bias: each rank's share, summed over the ranks);
+    four activation collectives (the input's gradient, ``out_proj``'s
+    partial, the norm's sum of squares forward and backward). With 3
+    heads over 2 ranks the block is computed whole on every rank."""
+    res, _ = world
+    c = CASES[f"ssm-{name}"]
+    flat = {k: (v["scale"] if isinstance(v, dict) else v)
+            for k, v in c["p"].items()}
+
+    def fn(x, **leaves):
+        p = {k: ({"scale": leaves[k]} if isinstance(c["p"][k], dict)
+                 else leaves[k]) for k in leaves}
+        return ssm_mod.ssm_forward(p, x, c["d"], c["cfg"])
+    want, grads = _full_grads(fn, {"x": c["x"], **flat}, c["g"])
+    outs = res[f"ssm-{name}"]
+    for out in outs:
+        _close(out["out"], want, "ssm block")
+        assert out["calls"] == (4 if c["split"] else 0)
+    for k, full in grads.items():
+        got = [out["grads"][k] for out in outs]
+        if k == "x" or not c["split"]:
+            for g in got:
+                _close(g, full, k)
+        elif k in ("out_proj", "gate_norm"):
+            dim = full.dim() + tp.SSM_TP_DIM["scale" if k == "gate_norm"
+                                             else k]
+            _close(torch.cat(got, dim=dim), full, k)
+        else:
+            _close(sum(got), full, k)
+            assert all(float(g.abs().max()) > 0 for g in got), k
+
+
+def test_ssm_blocks_split_only_where_their_heads_divide():
+    """``compute_plan``: a Mamba2 block splits ``out_proj`` and
+    ``gate_norm`` over ``model`` and marks its gathered leaves partial
+    where its heads divide over ``model`` (mamba2-780m's 48 over 2), and
+    is gathered whole where they do not (3 heads) or ``model`` is 1."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatbuf import tree_paths
+    from repro_torch.distributed.sharded_step import compute_plan
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import abstract_params
+    cfg = get_config("mamba2-780m").reduced()
+    odd = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, expand=3, head_dim=128))         # 384 / 128 = 3 heads
+    for c, dims, want in ((cfg, (2, 2), True), (odd, (2, 2), False),
+                          (cfg, (4, 1), False)):
+        params = abstract_params(c)
+        mesh = Mesh(dims, ("data", "model"))
+        plan = compute_plan([(p, x.shape) for p, x in tree_paths(params)],
+                            param_specs(params, c, mesh, "train"), mesh)
+        ssm = {p for p, _ in tree_paths(params) if tp.is_ssm(p)}
+        split = {p[-1] if p[-1] != "scale" else p[-2]
+                 for p in plan.split if p in ssm}
+        partial = {p[-1] for p in plan.partial if p in ssm}
+        assert split == ({"out_proj", "gate_norm"} if want else set()), c
+        assert partial == (set(tp.SSM_PARTIAL) if want else set()), c
+        assert ("blocks", "ln", "scale") not in plan.partial
 
 
 def test_activation_collectives_are_counted(world):

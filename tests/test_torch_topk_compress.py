@@ -119,8 +119,10 @@ def test_integer_rows_full_of_ties():
 
 
 def test_block_w_range_is_checked():
-    """The plain version takes any width >= 1; the kernel route (any
-    tensor off the CPU) refuses W > 1024 before it launches anything."""
+    """Every width >= 1 is taken, on the CPU and (past the warp path's
+    1024, by the block path) on the card; the card's route refuses only a
+    worker's indices past int32, before it launches anything."""
+    from repro_torch.kernels.topk_compress.ops import plan
     g = torch.zeros(1, 64)
     with pytest.raises(ValueError, match="block_w=0"):
         fused_block_topk_batched(g, g, k=1, block_w=0)
@@ -130,12 +132,43 @@ def test_block_w_range_is_checked():
         v, i, res = fused_block_topk_batched(g, g, k=2, block_w=W)
         assert v.shape == (1, 1, 2) and i.tolist() == [[[0, 0]]]
     m = torch.zeros(1, 64, device="meta")
-    with pytest.raises(ValueError, match="block_w=1025 .* CUDA kernel"):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         fused_block_topk_batched(m, m, k=1, block_w=1025)
+    big = torch.zeros(2, 2 ** 31 + 1, device="meta")
+
+    def launch(*a):
+        raise AssertionError("launched")
+    with pytest.raises(ValueError, match="int32"):
+        plan(launch, big, big, 1, 4096)
+
+
+@pytest.mark.parametrize("n,W,k", [(5000, 2048, 3), (12000, 5000, 3),
+                                   (4096, 2048, 1)])
+def test_wide_rows_match_pallas_and_the_shape_plan(n, W, k):
+    """block_w 2048 and 5000 (the card's block path) with k 3: the plain
+    version equals the Pallas kernel, and ``plan`` driven by the plain
+    version equals it, bit for bit; a NaN row and a row of ties
+    included."""
+    from repro_torch.kernels.topk_compress.ops import plan
+    from repro_torch.kernels.topk_compress.ref import \
+        fused_block_topk_batched_ref
+    rng = np.random.RandomState(n + W)
+    g = rng.randn(2, n).astype(np.float32)
+    r = (rng.randn(2, n) * 0.3).astype(np.float32)
+    g[1, 3] = np.nan
+    g[0, W:2 * W] = np.sign(g[0, W:2 * W]) * 2.0
+    r[0, W:2 * W] = 0.0
+    jv, tv = _both_batched(g, r, k, W)
+    for a, b in zip(jv, tv):
+        assert _same(a, b)
+    pv = plan(lambda g, r, k, W: fused_block_topk_batched_ref(
+        g, r, k=k, block_w=W), torch.tensor(g), torch.tensor(r), k, W)
+    for a, b in zip(pv, tv):
+        assert _same(a.numpy(), b)
 
 
 def test_block_w_wider_than_the_kernel_on_the_cpu():
-    """W = 2048, wider than the CUDA kernel's 1024: the CPU's plain
+    """W = 2048, wider than the warp path's 1024: the CPU's plain
     version equals the Pallas kernel bit for bit (2 x 5000 values,
     k = 4)."""
     rng = np.random.RandomState(2048)
