@@ -21,8 +21,11 @@ result):
    compressor BIT-EXACT
    (values, indices, residual) on the JAX kernel tests' cases batched
    over 3 workers, rows with NaN / all zeros / magnitude ties, and the
-   elastic-SGD demo's shape, and rows past the warp path's 1024 (the
-   block path, staged and in place); then each kernel's time per launch (CUDA
+   elastic-SGD demo's shape, and rows past the warp path's 512 through
+   the plan and through every other route that takes them, bit patterns
+   held (the select kernel staged and read back from the residual, the
+   rounds kernel; k = W, tie-heavy and sparse rows, rows off 16 bytes);
+   then each kernel's time per launch (CUDA
    events; flash-decode's from CUDA graphs, its eager calls and the
    wrapper's host time per call beside it)
    beside its plain version's, a library yardstick's and the least time
@@ -294,10 +297,13 @@ result):
    at ``paligemma-3b``'s D 256 (8 / 1 heads, f32 and bf16) and 40 query
    heads on one KV head, ``ssd_scan`` at hd 160, N 6, chunk 256 and at N
    256, chunk 128, ``fused_compress`` over the LM's buffer at block_w
-   2048 and 8192 (bit-exact); each held against its plain version and
-   timed beside it, a library call and its bound (the compressor's
-   wide rows, NaN / tie rows and rows past shared memory are also held
-   in phase 3);
+   2048 and 8192 on three buffers (randn, tie-heavy integers, 99.5%
+   zeros; bit patterns equal, launches counted by route); each held
+   against its plain version and timed beside it, a library call and
+   its bound; then the compressor's rounds kernel at the randn shapes,
+   the warp path against the select kernel at W 512 and the select
+   kernel at 1024, held and timed (the compressor's wide rows, NaN / tie
+   rows and rows past shared memory are also held in phase 3);
 12. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1004,30 +1010,52 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def tk_run(g: torch.Tensor, r: torch.Tensor, k: int, W: int,
+           route: str = None):
+    """The compressor through its wrapper (the plan's route), or one
+    launch of ``route``'s kernel."""
+    if route is None:
+        return tk_ops.fused_block_topk_batched(g, r, k=k, block_w=W)
+    return tk_ops._launch(g.float().contiguous(), r.float().contiguous(),
+                          min(k, W), W, route)
+
+
+def tk_same(out, ref, bits: bool) -> list:
+    """The outputs that differ from the plain version's: ``same`` (NaN ==
+    NaN, the sign of 0 ignored), or with ``bits`` bit patterns
+    (``same_bits``: -0.0 != +0.0, NaN payloads compared)."""
+    eq = same_bits if bits else same
+    return [what for a, b, what in zip(out, ref, ("values", "indices",
+                                                  "residual"))
+            if not eq(a, b)]
+
+
 def tk_check(name: str, g: torch.Tensor, r: torch.Tensor, k: int,
-             W: int) -> float:
-    out = tk_ops.fused_block_topk_batched(g, r, k=k, block_w=W)
+             W: int, route: str = None, bits: bool = False) -> float:
+    out = tk_run(g, r, k, W, route)
     ref = fused_block_topk_batched_ref(g, r, k=k, block_w=W)
     torch.cuda.synchronize()
-    for a, b, what in zip(out, ref, ("values", "indices", "residual")):
-        if not same(a, b):
-            diff = int((a != b).sum()) if a.shape == b.shape else -1
-            raise AssertionError(f"fused_compress {name}: {what} differ from "
-                                 f"the plain version ({diff} entries)")
+    bad = tk_same(out, ref, bits)
+    if bad:
+        raise AssertionError(f"fused_compress {name} ({route or 'plan'}): "
+                             f"{', '.join(bad)} differ from the plain version")
     err = max(max_err(out[0], ref[0]), max_err(out[2], ref[2]))
-    print(f"[kernel] fused_compress {name}: bit-exact (values, indices, "
+    print(f"[kernel] fused_compress {name} "
+          f"({route or tk_ops.route(W, min(k, W))}): "
+          f"{'bit patterns' if bits else 'bit-exact'} (values, indices, "
           f"residual)")
     return err
 
 
 def tk_bound(Wk: int, n: int, W: int, k: int) -> dict:
-    """Least time for one launch: g and r read once, residual, values and
-    indices written once, over HBM bandwidth; or the f32 operations (one
-    add per entry, |.| and a compare per entry per round) over the CUDA
-    cores' peak."""
+    """Least time for one launch of the function, whatever computes it:
+    g and r read once, residual, values and indices written once, over
+    HBM bandwidth; or its f32 operations, one add and one |.| per entry,
+    over the CUDA cores' peak (the rounds' k compares per entry are one
+    algorithm's, not the function's)."""
     R = -(-n // W)
     nbytes = 4 * Wk * n * 3 + 8 * Wk * R * k
-    ops = Wk * n + 2 * k * Wk * R * W
+    ops = 2 * Wk * n
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / F32_FLOPS * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
@@ -1060,18 +1088,20 @@ def graph_ms(fn, n: int, replays: int = 10) -> float:
 
 
 def time_fused(g: torch.Tensor, r: torch.Tensor, k: int, W: int, *,
-               iters: int, plain_iters: int, graph: bool) -> dict:
+               iters: int, plain_iters: int, graph: bool,
+               route: str = None) -> dict:
     """Kernel, plain version and the ``torch.topk`` yardstick (top-k of
     |g + r| per W-row: no residual, no promised tie order; rows padded
     with zeros when W does not divide n) on the same inputs. With
     ``graph`` the three are timed from CUDA graphs (device time; the
     eager back-to-back times, host-bound at small shapes, are kept as
-    ``*_eager``); without, eagerly."""
+    ``*_eager``); without, eagerly. ``route`` times that route's kernel
+    in place of the plan's; ``plain_iters`` 0 skips the plain version."""
     Wk, n = g.shape
     pad = (-n) % W
 
     def kernel():
-        tk_ops.fused_block_topk_batched(g, r, k=k, block_w=W)
+        tk_run(g, r, k, W, route)
 
     def plain():
         fused_block_topk_batched_ref(g, r, k=k, block_w=W)
@@ -1083,7 +1113,8 @@ def time_fused(g: torch.Tensor, r: torch.Tensor, k: int, W: int, *,
         torch.topk(c.view(-1, W), k, dim=1)
 
     eager = {"ms_eager": cuda_ms(kernel, iters),
-             "plain_ms_eager": cuda_ms(plain, plain_iters, warmup=1),
+             "plain_ms_eager": (cuda_ms(plain, plain_iters, warmup=1)
+                                if plain_iters else None),
              "library_ms_eager": cuda_ms(library, iters)}
     if graph:
         ms, plain_ms = graph_ms(kernel, iters), graph_ms(plain, plain_iters)
@@ -1092,7 +1123,24 @@ def time_fused(g: torch.Tensor, r: torch.Tensor, k: int, W: int, *,
         ms, plain_ms = eager["ms_eager"], eager["plain_ms_eager"]
         library_ms, ms2 = eager["library_ms_eager"], cuda_ms(kernel, iters)
     return {"ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
-            "library_ms": library_ms, **eager, **tk_bound(Wk, n, W, k)}
+            "library_ms": library_ms, "route": route or tk_ops.route(W, k),
+            **eager, **tk_bound(Wk, n, W, k)}
+
+
+def tk_buffers(gen, shape, device=None) -> dict:
+    """The compressor's three inputs: ``randn`` (g, and r at 0.1);
+    ``ties``, integers in -3..3 with r = 0, so the threshold's bucket is
+    huge; ``sparse``, 99.5% zeros, so most rows hold fewer than k = W/128
+    nonzeros (an embedding table's untouched rows)."""
+    def randn():
+        return torch.randn(*shape, generator=gen, device=device)
+    g = randn()
+    return {"randn": (g, randn() * 0.1),
+            "ties": (torch.randint(-3, 4, shape, generator=gen,
+                                   device=device).float(),
+                     torch.zeros(shape, device=device)),
+            "sparse": (g * (torch.rand(*shape, generator=gen, device=device)
+                            < 0.005), torch.zeros(shape, device=device))}
 
 
 def phase_fused_kernel(card: str) -> dict:
@@ -1143,21 +1191,54 @@ def phase_fused_kernel(card: str) -> dict:
           f"us ({t['bound_by']}, {t['bytes'] / 1e6:.2f} MB); called eagerly "
           f"{t['ms_eager'] * 1e3:.1f} / {t['plain_ms_eager'] * 1e3:.1f} / "
           f"{t['library_ms_eager'] * 1e3:.1f} us | {card}")
-    # rows wider than the warp path's 1024 run the block path: staged in
-    # shared memory (W 2048, 1100-wide ragged rows, NaN and tie rows), and
-    # worked in place in the residual past 227 KiB (W 65 536)
-    g = torch.randn(3, 5000, generator=gen)
-    r = torch.randn(3, 5000, generator=gen) * 0.3
+    # rows wider than the warp path's: each through the plan, then through
+    # every other route that takes it, bit patterns held (-0.0, NaN
+    # payloads). Staged in shared memory (W 1025-4096 with 128 threads,
+    # 5000 with 256), NaN and tie rows, k past 32 / 64 / 128 (the warp
+    # sorts of 64-256 picks) and k = W (the block-wide sort); n = 5001
+    # puts the second worker's rows off 16 bytes (scalar heads and tails),
+    # and g, r one float into their buffers takes the scalar path; rows of
+    # 65 536 read back from the residual
+    g = torch.randn(3, 5001, generator=gen)
+    r = torch.randn(3, 5001, generator=gen) * 0.3
     g[1, 7] = float("nan")
     g[2, 2048:4096] = torch.sign(g[2, 2048:4096]) * 2.0
     r[2, 2048:4096] = 0.0
-    for W, k in ((2048, 4), (1100, 3), (5000, 3)):
-        err = max(err, tk_check(f"wide rows W={W} k={k} x3", cuda(g),
-                                cuda(r), k, W))
-    g = torch.randn(2, 140_000, generator=gen)
-    err = max(err, tk_check("unstaged rows W=65536 k=3 x2", cuda(g),
-                            cuda(g * 0.5), 3, 65536))
-    return {"max_abs_err": err, "demo": t}
+    g[0, :2048:3] = -0.0
+    r[0, :2048:3] = -0.0
+    g, r = cuda(g), cuda(r)
+    wide = [("", g, r, W, k) for W, k in
+            ((2048, 4), (1100, 3), (5000, 3), (2048, 100), (5000, 200),
+             (4096, 60), (2048, 2048), (1025, 1025))]
+    buf = cuda(torch.randn(2 * 3 * 4099 + 2, generator=gen))
+    wide.append((" scalar", buf[1:1 + 3 * 4099].view(3, 4099),
+                 buf[2 + 3 * 4099:].view(3, 4099), 2048, 16))
+    sel = tk_buffers(gen, (2, 9000))
+    for kind in ("ties", "sparse"):
+        wide.append((f" {kind}", cuda(sel[kind][0]), cuda(sel[kind][1]),
+                     2048, 16))
+    for tag, gw, rw, W, k in wide:
+        name = f"wide rows{tag} W={W} k={k} x{gw.shape[0]}"
+        err = max(err, tk_check(name, gw, rw, k, W, bits=True))
+        for other in ("select", "select_in_place", "rounds"):
+            if other != tk_ops.route(W, min(k, W)):
+                err = max(err, tk_check(name, gw, rw, k, W, route=other,
+                                        bits=True))
+    kw = time_fused(g, r, 2048, 2048, iters=20, plain_iters=2, graph=False)
+    print(f"[kernel] fused_compress timing, k = W = 2048 (3 x 5001, "
+          f"{kw['route']}): kernel {kw['ms'] * 1e3:.1f} us "
+          f"({kw['ms_runs'][0] * 1e3:.1f}, {kw['ms_runs'][1] * 1e3:.1f}), "
+          f"plain {kw['plain_ms'] * 1e3:.0f} us, torch.topk "
+          f"{kw['library_ms'] * 1e3:.1f} us, bound {kw['bound_ms'] * 1e3:.2f} "
+          f"us ({kw['bound_by']}) | {card}")
+    for W, k in ((512, 4), (128, 5), (32, 1)):      # the warp path's widths
+        err = max(err, tk_check(f"integer ties W={W} k={k}", cuda(gi),
+                                cuda(ri), k, W, route="select", bits=True))
+    g = cuda(torch.randn(2, 140_000, generator=gen))
+    for route in (None, "rounds"):
+        err = max(err, tk_check("rows read back W=65536 k=3 x2", g, g * 0.5,
+                                3, 65536, route=route, bits=True))
+    return {"max_abs_err": err, "demo": t, "k_equals_w": kw}
 
 
 # ---------------------------------------------------------------------------
@@ -4778,6 +4859,73 @@ D2_TK = {f"W={W}": dict(n=100_682_496, W=W, k=W // 128) for W in (2048,
                                                                  8192)}
 
 
+def d2_tk_inputs(gen) -> dict:
+    """The compressor's D2 inputs: each shape on ``tk_buffers``' three
+    buffers (the randn one under the shape's name)."""
+    tk_in = {}
+    for n, c in D2_TK.items():
+        for kind, a in tk_buffers(gen, (1, c["n"]), "cuda").items():
+            tk_in[n if kind == "randn" else f"{n} {kind}"] = (*a, c)
+    return tk_in
+
+
+def d2_compressor(card: str, tk_in: dict, tk_out: dict) -> dict:
+    """The compressor's D2 outputs held bit for bit (bit patterns) against
+    the plain version and timed beside ``torch.topk`` and the bound; the
+    rounds kernel at the randn shapes, held and timed; the warp path and
+    the select kernel at W 512, the select kernel at 1024 (the warp
+    path's edge)."""
+    out = {"fused_compress": {}, "fused_compress_rounds": {},
+           "fused_compress_edge": {}}
+    for n, (g, r, c) in tk_in.items():
+        ref = fused_block_topk_batched_ref(g, r, k=c["k"], block_w=c["W"])
+        torch.cuda.synchronize()
+        bad = tk_same(tk_out[n], ref, bits=True)
+        if bad:
+            raise AssertionError(f"[d2] fused_compress {n}: {', '.join(bad)}"
+                                 f" differ from the plain version")
+        del ref
+        t = time_fused(g, r, c["k"], c["W"], iters=5, plain_iters=1,
+                       graph=False)
+        print(f"[kernel] [d2] fused_compress {n} k={c['k']} over "
+              f"{c['n']} entries ({t['route']}): bit patterns equal; kernel "
+              f"{t['ms']:.3f} ms ({t['ms_runs'][0]:.3f}, "
+              f"{t['ms_runs'][1]:.3f}), plain {t['plain_ms']:.3f} ms, "
+              f"torch.topk {t['library_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) | {card}")
+        out["fused_compress"][n] = {"max_abs_err": 0.0, **t}
+    # the rounds kernel at the D2 shapes (the route before the select
+    # kernel), held and timed in the same run
+    for n, c in D2_TK.items():
+        g, r, _ = tk_in[n]
+        tk_check(f"[d2] {n} k={c['k']}", g, r, c["k"], c["W"],
+                 route="rounds", bits=True)
+        t = time_fused(g, r, c["k"], c["W"], iters=3, plain_iters=0,
+                       graph=False, route="rounds")
+        print(f"[kernel] [d2] fused_compress {n} k={c['k']} (rounds): "
+              f"kernel {t['ms']:.3f} ms ({t['ms_runs'][0]:.3f}, "
+              f"{t['ms_runs'][1]:.3f}) | {card}")
+        out["fused_compress_rounds"][n] = {"max_abs_err": 0.0, **t}
+    # the warp path's edge (``tk_ops.WARP_BLOCK_W``): warp against select
+    # at W 512, select at 1024 (``scripts/time_fused_compress.py`` times
+    # the parent's warp path at 640-1024)
+    g, r, _ = tk_in["W=2048"]
+    for W, k in ((512, 4), (1024, 4), (1024, 8)):
+        for rt in ("warp", "select") if W <= tk_ops.WARP_BLOCK_W else (
+                "select",):
+            tk_check(f"[d2] edge W={W} k={k}", g, r, k, W, route=rt)
+            t = time_fused(g, r, k, W, iters=5, plain_iters=0, graph=False,
+                           route=rt)
+            print(f"[kernel] [d2] fused_compress edge W={W} k={k} ({rt}): "
+                  f"kernel {t['ms']:.3f} ms ({t['ms_runs'][0]:.3f}, "
+                  f"{t['ms_runs'][1]:.3f}), torch.topk "
+                  f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"| {card}")
+            out["fused_compress_edge"][f"W={W} k={k} {rt}"] = {
+                "max_abs_err": 0.0, **t}
+    return out
+
+
 def phase_d2(card: str) -> dict:
     """The D2 shapes through the public wrappers, the launch counters set
     to 0 just before and read just after; each output held against the
@@ -4791,34 +4939,36 @@ def phase_d2(card: str) -> dict:
                             layers=12, dtype=c["dtype"])
              for n, c in D2_FD.items()}
     ssd_in = {n: ssd_inputs(gen, **c) for n, c in D2_SSD.items()}
-    tk_in = {n: (torch.randn(1, c["n"], generator=gen, device="cuda"),
-                 torch.randn(1, c["n"], generator=gen, device="cuda") * 0.1)
-             for n, c in D2_TK.items()}
+    tk_in = d2_tk_inputs(gen)
 
     def layer0(a):
         return {k: (v[0] if k in ("q", "kpool", "vpool") else v)
                 for k, v in a.items()}
     torch.cuda.synchronize()
     runtime.reset_counters()
+    for counter in tk_ops.ROUTE_COUNTERS.values():
+        counter.reset()
     fa_out = {n: api.flash_attention(*a) for n, a in fa_in.items()}
     fd_out = {n: api.flash_decode(**layer0(a)) for n, a in fd_in.items()}
     ssd_out = {n: api.ssd_scan(*a, chunk=D2_SSD[n]["chunk"])
                for n, a in ssd_in.items()}
-    tk_out = {n: tk_ops.fused_block_topk_batched(*a, k=D2_TK[n]["k"],
-                                                 block_w=D2_TK[n]["W"])
-              for n, a in tk_in.items()}
+    tk_out = {n: tk_ops.fused_block_topk_batched(g, r, k=c["k"],
+                                                 block_w=c["W"])
+              for n, (g, r, c) in tk_in.items()}
     torch.cuda.synchronize()
     launches = {n: runtime.COUNTERS[n].count
                 for n in ("flash_attention", "flash_decode", "ssd_scan",
                           "fused_compress")}
+    routes = {n: c.count for n, c in tk_ops.ROUTE_COUNTERS.items()}
     want = {"flash_attention": 2, "flash_decode": 4, "ssd_scan": 3,
-            "fused_compress": 2}
-    if launches != want:
-        raise AssertionError(f"[d2] launches {launches}, want {want}")
-    print(f"[d2] the shapes through the wrappers: launches {launches} | "
-          f"{card}")
-    out = {"launches": launches, "flash_attention": {}, "flash_decode": {},
-           "ssd_scan": {}, "fused_compress": {}}
+            "fused_compress": len(tk_in)}
+    if launches != want or routes["select"] != len(tk_in):
+        raise AssertionError(f"[d2] launches {launches}, want {want}; "
+                             f"compressor routes {routes}")
+    print(f"[d2] the shapes through the wrappers: launches {launches}, "
+          f"compressor routes {routes} | {card}")
+    out = {"launches": launches, "routes": routes, "flash_attention": {},
+           "flash_decode": {}, "ssd_scan": {}}
     for n, a in fa_in.items():
         err, rel = fa_check(f"[d2] {n} D=112", *a, out=fa_out[n])
         t = time_fa(f"[d2] {n}", *a, card, iters=4, plain_iters=2)
@@ -4863,24 +5013,7 @@ def phase_d2(card: str) -> dict:
               f"{plain_ms:.3f} ms, no library call, bound "
               f"{res['bound_ms']:.4f} ms ({res['bound_by']}) | {card}")
         out["ssd_scan"][n] = res
-    for n, (g, r) in tk_in.items():
-        c = D2_TK[n]
-        ref = fused_block_topk_batched_ref(g, r, k=c["k"], block_w=c["W"])
-        torch.cuda.synchronize()
-        for x, y, what in zip(tk_out[n], ref, ("values", "indices",
-                                               "residual")):
-            if not same(x, y):
-                raise AssertionError(f"[d2] fused_compress {n}: {what} "
-                                     f"differ from the plain version")
-        del ref
-        t = time_fused(g, r, c["k"], c["W"], iters=5, plain_iters=1,
-                       graph=False)
-        print(f"[kernel] [d2] fused_compress {n} k={c['k']} over "
-              f"{c['n']} entries: bit-exact; kernel {t['ms']:.3f} ms "
-              f"({t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f}), plain "
-              f"{t['plain_ms']:.3f} ms, torch.topk {t['library_ms']:.3f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) | {card}")
-        out["fused_compress"][n] = {"max_abs_err": 0.0, **t}
+    out.update(d2_compressor(card, tk_in, tk_out))
     del fa_in, fd_in, ssd_in, tk_in, fa_out, fd_out, ssd_out, tk_out
     free_card()
     return out
@@ -5015,7 +5148,10 @@ def main() -> int:
          "launches_adaptive_keep": train_lm["keep_launches"],
          "launches_hierarchy": slice9["hier-small"]["launches"],
          "launches_d2": d2["launches"]["fused_compress"],
+         "launches_d2_by_route": d2["routes"],
          "d2": d2_rows(d2, "fused_compress"),
+         "d2_rounds": d2_rows(d2, "fused_compress_rounds"),
+         "warp_edge": d2_rows(d2, "fused_compress_edge"),
          "max_abs_err": max(fused["max_abs_err"], lm["max_abs_err"]),
          "ms": demo["ms"], "plain_ms": demo["plain_ms"],
          "bound_ms": demo["bound_ms"], "bound_by": demo["bound_by"],

@@ -10,8 +10,14 @@ falls back to the plain version on the card. ``BLOCK_TOPK_COUNTER`` and
 ``COUNTER`` count kernel launches (and only those). Both kernels do the
 JAX wrappers' tail padding themselves (they read the buffers in place
 and treat columns past n as zeros), so the card path copies nothing.
-The fused kernel takes rows of any width: one warp per row up to
-``WARP_BLOCK_W``, one block of threads per row past it.
+The fused kernel takes rows of any width; ``route`` names which of its
+three kernels a (block_w, k) runs: ``warp`` (one warp per row, k rounds
+in registers) up to ``WARP_BLOCK_W``; past it ``select`` (one block per
+row: radix select of the threshold and one ordered emission, the row in
+shared memory), ``select_in_place`` (the same with the row read back
+from the residual, for rows past shared memory) or, when the k picks'
+sort buffer does not fit beside the row, ``rounds`` (one block per row,
+k barrier-bound rounds). ``ROUTE_COUNTERS`` count launches by route.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.kernels.build import BuiltLibrary, build, check_launch
-from repro_torch.kernels.runtime import launch_counter
+from repro_torch.kernels.runtime import LaunchCounter, launch_counter
 from repro_torch.kernels.topk_compress.ref import (
     block_topk_flat_ref, fused_block_topk_batched_ref)
 
@@ -30,17 +36,59 @@ SOURCE = Path(__file__).with_name("topk_compress.cu")
 BLOCK_TOPK_SOURCE = Path(__file__).with_name("block_topk.cu")
 COUNTER = launch_counter("fused_compress")
 BLOCK_TOPK_COUNTER = launch_counter("block_topk")
-# rows up to this width run one warp each (32 lanes x 32 registers); a
-# wider row runs one block of threads (``topk_compress.cu``)
-WARP_BLOCK_W = 1024
+# rows up to this width run one warp each (32 lanes x 16 registers); a
+# wider row runs one block of threads (``topk_compress.cu``): past 512 the
+# select kernel is the faster (``scripts/time_fused_compress.py``)
+WARP_BLOCK_W = 512
 _INDEX_LIMIT = 2 ** 31         # a worker's global indices are int32
+# the kernel's routes, in the order of its ``Route`` codes
+ROUTES = ("warp", "select", "select_in_place", "rounds")
+ROUTE_COUNTERS = {name: LaunchCounter(f"fused_compress.{name}")
+                  for name in ROUTES}
+_SMEM_LIMIT = 232_448 - 1024   # a Hopper block's, less the static arrays
+_HIST_BYTES = 4 * 4 * 256      # the select kernel's four 256-bin histograms
+
+
+def smem_bytes(W: int, k: int, staged: bool) -> int:
+    """The select kernel's dynamic shared memory (a copy of
+    ``topk_compress.cu``'s ``select_smem_bytes``, checked against it when
+    the library loads): staged, the row, W + 3 floats rounded up to 16
+    bytes (none in place); 8 bytes per sort slot, min(k, W) rounded up to
+    a power of two of at least 32; one histogram per digit pass."""
+    slots = 32
+    while slots < min(k, W):
+        slots *= 2
+    row = -(-4 * (W + 3) // 16) * 16 if staged else 0
+    return row + 8 * slots + _HIST_BYTES
+
+
+def route(W: int, k: int) -> str:
+    """The kernel that runs rows of W with k picks (k <= W)."""
+    if W <= WARP_BLOCK_W:
+        return "warp"
+    if smem_bytes(W, k, True) <= _SMEM_LIMIT:
+        return "select"
+    if smem_bytes(W, k, False) <= _SMEM_LIMIT:
+        return "select_in_place"
+    return "rounds"
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_compress_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
         + [ctypes.c_void_p])
     lib.fused_compress_launch.restype = ctypes.c_int
+    lib.fused_compress_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_compress_smem_bytes.restype = ctypes.c_longlong
+    for W, k, staged in ((1025, 1, True), (2048, 16, True), (8192, 64, True),
+                         (8192, 8192, True), (57_856, 3, False),
+                         (1 << 20, 16_384, False)):
+        got = lib.fused_compress_smem_bytes(W, k, int(staged))
+        if got != smem_bytes(W, k, staged):
+            raise RuntimeError(f"fused_compress: the select kernel needs "
+                               f"{got} B of shared memory at W={W}, k={k}, "
+                               f"staged={staged}; the wrapper reckons "
+                               f"{smem_bytes(W, k, staged)}")
 
 
 def library() -> BuiltLibrary:
@@ -83,21 +131,23 @@ def fused_block_topk_batched(g: torch.Tensor, r: torch.Tensor, *, k: int,
 
 def plan(launch: Callable, g: torch.Tensor, r: torch.Tensor, k: int,
          block_w: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The shape plan around ``launch(g, r, k, block_w)``: k clamped to
-    the row, and the one refusal, a worker's indices past int32. Rows of
-    any width are one launch (the kernel picks its warp or block path by
-    width); the CPU tests drive it with the plain version."""
+    """The shape plan around ``launch(g, r, k, block_w, route)``: k
+    clamped to the row, the route by (block_w, k) (``route``), and the one
+    refusal, a worker's indices past int32. Rows of any width are one
+    launch; the CPU tests drive it with the plain version."""
     n = g.shape[1]
     if -(-n // block_w) * block_w > _INDEX_LIMIT:
         raise ValueError(f"fused_block_topk_batched: {-(-n // block_w)} "
                          f"rows of {block_w} overflow a worker's int32 "
                          f"index space")
-    return launch(g, r, min(k, block_w), block_w)
+    k = min(k, block_w)
+    return launch(g, r, k, block_w, route(block_w, k))
 
 
-def _launch(g: torch.Tensor, r: torch.Tensor, k: int, block_w: int
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One kernel launch over every worker."""
+def _launch(g: torch.Tensor, r: torch.Tensor, k: int, block_w: int,
+            route: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``route``'s kernel over every worker (the kernel
+    refuses a route that does not take this (block_w, k))."""
     Wk, n = g.shape
     R = -(-n // block_w)
     g = g.float().contiguous()
@@ -110,9 +160,11 @@ def _launch(g: torch.Tensor, r: torch.Tensor, k: int, block_w: int
         stream = torch.cuda.current_stream(g.device).cuda_stream
         code = lib.fused_compress_launch(
             g.data_ptr(), r.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            res.data_ptr(), n, Wk, block_w, k, g.device.index, stream)
+            res.data_ptr(), n, Wk, block_w, k, ROUTES.index(route),
+            g.device.index, stream)
     check_launch("fused_compress", code)
     COUNTER.count += 1
+    ROUTE_COUNTERS[route].count += 1
     return vals, idx, res
 
 

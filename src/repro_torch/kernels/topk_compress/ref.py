@@ -30,6 +30,12 @@ So ties go to the lowest index whatever the sign, an exhausted (all-zero)
 row emits ``(0.0, 0)``, and a row holding a NaN selects nothing in every
 round and keeps its whole ``c``, NaN included, as its residual.
 
+``fused_compress_select_ref`` computes the same function by the method
+of the select kernel (``topk_compress.cu``, rows past the warp path):
+integer keys, a radix select of the threshold, ties to the lowest
+columns, one ordered emission. The tests hold it against the rounds; no
+path of the port calls it.
+
 ``fused_block_topk_batched_ref`` adds the JAX wrapper's arithmetic
 (``repro/kernels/topk_compress/ops.py``): zero tail padding to a multiple
 of ``block_w``, the worker axis folded into the row axis, global indices
@@ -39,7 +45,7 @@ CPU path of ``ops.fused_block_topk_batched`` and the comparison
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,13 +99,87 @@ def fused_compress_ref(g: torch.Tensor, r: torch.Tensor, k: int
     return torch.stack(vals, dim=1), torch.stack(offs, dim=1), rem
 
 
+# the select kernel's digits, from the key's top bit down: (shift, bits)
+SELECT_DIGITS = ((23, 8), (15, 8), (7, 8), (0, 7))
+
+
+def fused_compress_select_ref(g: torch.Tensor, r: torch.Tensor, k: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``fused_compress_ref``'s function by the select kernel's method.
+    Per row, with key = bits(c) & 0x7fffffff (monotone in |c|):
+    m = #(key > 0), k' = min(k, m) (0 in a row holding a NaN); the
+    threshold T = the k'-th largest key by at most four radix digit
+    passes over the nonzero keys, a pass ending the select when its
+    bucket is taken whole; picks = key > T, then the lowest columns with
+    key == T; the picks sorted by (key << 32 | ~column) descending and
+    emitted as (c + 0.0, column); k - k' pads (+0.0, 0), and with a pad
+    the residual's column 0 becomes +0.0."""
+    R, W = g.shape
+    k = min(k, W)
+    c = g.float() + r.float()
+    key = (c.view(torch.int32) & 0x7FFFFFFF).long()
+    nan = torch.isnan(c).any(dim=1)
+    m = (key != 0).sum(dim=1)
+    kk = torch.where(nan, torch.zeros_like(m), m.clamp(max=k))
+    # rows that select: 0 < k' < m; the rest take every nonzero (or none)
+    done = (kk == 0) | (kk == m)
+    thr = torch.zeros_like(m)
+    need_eq = torch.zeros_like(m)
+    prefix = torch.zeros_like(m)
+    needed = kk.clone()
+    hi_shift = 31
+    for shift, bits in SELECT_DIGITS:
+        match = ((key >> hi_shift) == prefix[:, None]) & (key != 0)
+        digit = (key >> shift) & ((1 << bits) - 1)
+        counts = torch.zeros(R, 256, dtype=torch.long,
+                             device=c.device).scatter_add_(1, digit,
+                                                           match.long())
+        incl = counts.flip(1).cumsum(1).flip(1)       # keys in bins >= b
+        lo = incl - counts                             # keys in bins > b
+        want = needed[:, None]
+        chosen = ((lo < want) & (want <= incl)).long().argmax(dim=1)
+        above = lo.gather(1, chosen[:, None])[:, 0]
+        cnt = counts.gather(1, chosen[:, None])[:, 0]
+        live = ~done
+        needed = torch.where(live, needed - above, needed)
+        prefix = torch.where(live, (prefix << bits) | chosen, prefix)
+        whole = live & (cnt == needed)
+        thr = torch.where(whole, ((prefix << shift) - 1).clamp(min=0), thr)
+        done = done | whole
+        hi_shift = shift
+    tied = ~done                        # all four passes: T = prefix
+    thr = torch.where(tied, prefix, thr)
+    need_eq = torch.where(tied, needed, need_eq)
+    tie = (key == thr[:, None]) & tied[:, None]
+    rank = tie.long().cumsum(dim=1) - 1               # lowest columns first
+    pick = (key > thr[:, None]) | (tie & (rank < need_eq[:, None]))
+    pick &= (kk > 0)[:, None]
+    col = torch.arange(W, dtype=torch.long, device=c.device)[None, :]
+    packed = torch.where(pick, (key << 32) | (0xFFFFFFFF - col),
+                         torch.full_like(key, -1))
+    order = packed.sort(dim=1, descending=True).values[:, :k]
+    t = torch.arange(k, dtype=torch.long, device=c.device)[None, :]
+    real = t < kk[:, None]
+    pcol = torch.where(real, 0xFFFFFFFF - (order & 0xFFFFFFFF),
+                       torch.zeros_like(order))
+    vals = torch.where(real, c.gather(1, pcol) + 0.0,
+                       torch.zeros(R, k, dtype=torch.float32, device=c.device))
+    res = torch.where(pick, torch.zeros_like(c), c)
+    pad0 = (kk < k) & ~nan
+    res[:, 0] = torch.where(pad0, torch.zeros_like(res[:, 0]), res[:, 0])
+    return vals, pcol.int(), res
+
+
 def fused_block_topk_batched_ref(g: torch.Tensor, r: torch.Tensor, *, k: int,
-                                 block_w: int
+                                 block_w: int,
+                                 rows: Callable = fused_compress_ref
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """g, r: (Wk, n) per-worker flat buffers -> (values (Wk, R, k) f32,
     global indices (Wk, R, k) int32, residuals (Wk, n) f32), with
-    R = ceil(n / block_w) and k clamped to block_w."""
+    R = ceil(n / block_w) and k clamped to block_w. ``rows`` computes the
+    (R, W) rows: the rounds, or ``fused_compress_select_ref``."""
     Wk, n = g.shape
     k = min(k, block_w)
     pad = (-n) % block_w
@@ -109,8 +189,8 @@ def fused_block_topk_batched_ref(g: torch.Tensor, r: torch.Tensor, *, k: int,
         g = F.pad(g, (0, pad))
         r = F.pad(r, (0, pad))
     R = (n + pad) // block_w
-    vals, offs, res = fused_compress_ref(g.reshape(Wk * R, block_w),
-                                         r.reshape(Wk * R, block_w), k)
+    vals, offs, res = rows(g.reshape(Wk * R, block_w),
+                           r.reshape(Wk * R, block_w), k)
     idx = (offs.reshape(Wk, R, k)
            + torch.arange(R, dtype=torch.int32,
                           device=g.device)[None, :, None] * block_w)

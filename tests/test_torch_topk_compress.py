@@ -7,9 +7,13 @@ its numpy oracle, which differs on NaN rows), plus the port's
 ``GradientCompressor`` flat path against ``repro.core.compression``.
 Inputs are drawn with numpy from a seed and handed to both sides; every
 comparison is bit-exact (``np.array_equal``, NaN == NaN for residuals).
+The select kernel's method (``fused_compress_select_ref``: radix select,
+ties to the lowest columns, one ordered emission) is held against the
+rounds and the Pallas kernel in bit patterns, and the shape plan's routes
+and shared-memory formula are checked.
 
-The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it against
-this plain version there, bit-exact, on the same cases.
+The CUDA kernels run only on the card; ``chip_smoke.py`` holds each route
+against this plain version there, bit for bit, on the same cases.
 """
 import numpy as np
 import pytest
@@ -120,8 +124,9 @@ def test_integer_rows_full_of_ties():
 
 def test_block_w_range_is_checked():
     """Every width >= 1 is taken, on the CPU and (past the warp path's
-    1024, by the block path) on the card; the card's route refuses only a
-    worker's indices past int32, before it launches anything."""
+    ``WARP_BLOCK_W``, by a block per row) on the card; the card's plan
+    refuses only a worker's indices past int32, before it launches
+    anything."""
     from repro_torch.kernels.topk_compress.ops import plan
     g = torch.zeros(1, 64)
     with pytest.raises(ValueError, match="block_w=0"):
@@ -145,7 +150,7 @@ def test_block_w_range_is_checked():
 @pytest.mark.parametrize("n,W,k", [(5000, 2048, 3), (12000, 5000, 3),
                                    (4096, 2048, 1)])
 def test_wide_rows_match_pallas_and_the_shape_plan(n, W, k):
-    """block_w 2048 and 5000 (the card's block path) with k 3: the plain
+    """block_w 2048 and 5000 (the card's select route) with k 3: the plain
     version equals the Pallas kernel, and ``plan`` driven by the plain
     version equals it, bit for bit; a NaN row and a row of ties
     included."""
@@ -161,14 +166,14 @@ def test_wide_rows_match_pallas_and_the_shape_plan(n, W, k):
     jv, tv = _both_batched(g, r, k, W)
     for a, b in zip(jv, tv):
         assert _same(a, b)
-    pv = plan(lambda g, r, k, W: fused_block_topk_batched_ref(
+    pv = plan(lambda g, r, k, W, route: fused_block_topk_batched_ref(
         g, r, k=k, block_w=W), torch.tensor(g), torch.tensor(r), k, W)
     for a, b in zip(pv, tv):
         assert _same(a.numpy(), b)
 
 
 def test_block_w_wider_than_the_kernel_on_the_cpu():
-    """W = 2048, wider than the warp path's 1024: the CPU's plain
+    """W = 2048, wider than the warp path's rows: the CPU's plain
     version equals the Pallas kernel bit for bit (2 x 5000 values,
     k = 4)."""
     rng = np.random.RandomState(2048)
@@ -178,6 +183,143 @@ def test_block_w_wider_than_the_kernel_on_the_cpu():
     assert tv[0].shape == (2, 3, 4)
     for a, b in zip(jv, tv):
         assert _same(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the select kernel's method (``fused_compress_select_ref``): bit for bit
+# against the rounds and the Pallas kernel, signed zeros included
+# ---------------------------------------------------------------------------
+def _select_inputs(kind, n, seed):
+    """Two workers' (g, r) of ``kind``, float32 numpy."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(2, n).astype(np.float32)
+    r = (rng.randn(2, n) * 0.3).astype(np.float32)
+    if kind == "ties":                  # |c| in 0..4: a huge threshold bucket
+        g = rng.randint(-3, 4, size=(2, n)).astype(np.float32)
+        r = rng.randint(-1, 2, size=(2, n)).astype(np.float32)
+    elif kind == "sparse":              # 99% zeros: rows short of k nonzeros
+        g *= rng.rand(2, n) < 0.01
+        r[:] = 0.0
+    elif kind == "specials":            # -0.0 at column 0, +-inf
+        g = rng.choice(np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf],
+                                np.float32), size=(2, n))
+        g[:, ::7] = -0.0
+        r[:] = -0.0
+    elif kind == "subnormal":           # ties and order among subnormals
+        g = rng.randint(-4, 5, size=(2, n)) * np.float32(1e-40)
+        g[1, ::3] = rng.randint(-9, 10, size=g[1, ::3].shape) * np.float32(
+            1.4e-45)
+        r[:] = -0.0
+        r[0, 1::5] = np.float32(-2.8e-45)
+    elif kind == "nan":
+        g[0, 5] = np.nan
+        g[1, -1] = np.nan
+    return g, r
+
+
+def _bits_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return np.array_equal(_bits(a) if a.dtype.kind == "f" else a,
+                          _bits(b) if b.dtype.kind == "f" else b)
+
+
+# (kind, n, block_w, k): the wide path's shapes, k = W and k = 1
+SELECT_CASES = [("randn", 12000, 1100, 9), ("ties", 6000, 2048, 16),
+                ("sparse", 9000, 2048, 16), ("specials", 5000, 1500, 40),
+                ("subnormal", 6000, 2048, 16), ("subnormal", 200, 40, 40),
+                ("nan", 5000, 2048, 4), ("randn", 200, 40, 40),
+                ("ties", 100, 24, 24), ("randn", 5000, 2048, 1),
+                ("ties", 3000, 1025, 1)]
+
+
+@pytest.mark.parametrize("kind,n,W,k", SELECT_CASES)
+def test_select_method_bit_exact(kind, n, W, k):
+    """The select kernel's method equals the rounds (``fused_compress_ref``)
+    and the Pallas kernel in interpret mode bit for bit: values, indices
+    and residuals, the sign of zero and NaN payloads included. XLA's CPU
+    backend flushes subnormals to zero, so the subnormal cases are held
+    against the rounds alone (the card's kernel and plain version keep
+    them: no -ftz)."""
+    from repro_torch.kernels.topk_compress.ref import (
+        fused_block_topk_batched_ref, fused_compress_select_ref)
+    g, r = _select_inputs(kind, n, n + W + k)
+    tg, tr = torch.tensor(g), torch.tensor(r)
+    rounds = fused_block_topk_batched_ref(tg, tr, k=k, block_w=W)
+    select = fused_block_topk_batched_ref(tg, tr, k=k, block_w=W,
+                                          rows=fused_compress_select_ref)
+    for b, c in zip(rounds, select):
+        assert _bits_equal(b, c.numpy())
+    if kind == "subnormal":
+        assert (select[0].abs() < 1.2e-38).all() and (select[0] != 0).any()
+    else:
+        jv = j_batched(jnp.asarray(g), jnp.asarray(r), k=k, block_w=W,
+                       interpret=True)
+        for a, b in zip(jv, rounds):
+            assert _bits_equal(a, b.numpy())
+    if kind == "sparse":                # rule 3: pads zero column 0
+        vals, idx, res = (x.numpy() for x in select)
+        assert (vals == 0).any() and (idx % W == 0).any()
+
+
+def test_select_rule_for_column_zero():
+    """A row short of k nonzeros pads with (+0.0, first column) and ends
+    with +0.0 at its column 0 where it held -0.0; a NaN row keeps its
+    -0.0; a row with k nonzeros keeps it."""
+    from repro_torch.kernels.topk_compress.ref import fused_compress_select_ref
+    g = torch.tensor([[-0.0, 2.0, 0.0, -1.0],
+                      [-0.0, np.nan, 1.0, 0.0],
+                      [-0.0, 3.0, -3.0, 1.0]])
+    vals, idx, res = fused_compress_select_ref(
+        g, torch.full_like(g, -0.0), 3)
+    assert _bits(res[:, 0]).tolist() == [0, 0x80000000, 0x80000000]
+    assert vals[0].tolist() == [2.0, -1.0, 0.0] and idx[0].tolist() == [1, 3, 0]
+    assert _bits(vals[1]).tolist() == [0, 0, 0] and idx[1].tolist() == [0, 0, 0]
+    assert vals[2].tolist() == [3.0, -3.0, 1.0] and idx[2].tolist() == [1, 2, 3]
+
+
+def test_plan_routes_by_shared_memory():
+    """``route`` by (block_w, k) and the select kernel's shared-memory
+    formula (the library checks it when it loads on the card); ``plan``
+    driven by the plain versions (the select method on the select routes,
+    the rounds elsewhere) equals the Pallas kernel, and each CPU call
+    launches nothing."""
+    from repro_torch.kernels.topk_compress import ops
+    from repro_torch.kernels.topk_compress.ref import (
+        fused_block_topk_batched_ref, fused_compress_ref,
+        fused_compress_select_ref)
+    assert ops.route(128, 1) == ops.route(ops.WARP_BLOCK_W, 8) == "warp"
+    assert ops.route(ops.WARP_BLOCK_W + 1, 1) == ops.route(1024, 8) == "select"
+    assert ops.route(2048, 16) == ops.route(8192, 64) == "select"
+    assert ops.route(8192, 8192) == ops.route(56_765, 32) == "select"
+    assert ops.route(56_766, 32) == "select_in_place"
+    assert ops.route(1 << 20, 16_384) == "select_in_place"
+    assert ops.route(40_000, 40_000) == ops.route(1 << 20, 16_385) == "rounds"
+    # the row (W + 3 floats to 16 B) + 8 B per sort slot + four 256-bin
+    # histograms
+    assert ops.smem_bytes(2048, 16, True) == 8208 + 256 + 4096
+    assert ops.smem_bytes(8192, 64, True) == 32784 + 512 + 4096
+    assert ops.smem_bytes(8192, 8192, False) == 65536 + 4096
+    assert ops.smem_bytes(1025, 1, True) == 4112 + 256 + 4096
+    seen = []
+
+    def launch(g, r, k, W, route):
+        seen.append(route)
+        rows = (fused_compress_select_ref if route.startswith("select")
+                else fused_compress_ref)
+        return fused_block_topk_batched_ref(g, r, k=k, block_w=W, rows=rows)
+    before = COUNTER.count
+    for kind, n, W, k in (("ties", 3000, 1500, 7), ("randn", 700, 64, 3),
+                          ("sparse", 4000, 1025, 24)):
+        g, r = _select_inputs(kind, n, W)
+        jv = j_batched(jnp.asarray(g), jnp.asarray(r), k=k, block_w=W,
+                       interpret=True)
+        pv = ops.plan(launch, torch.tensor(g), torch.tensor(r), k, W)
+        for a, b in zip(jv, pv):
+            assert _bits_equal(a, b.numpy())
+    assert seen == ["select", "warp", "select"]
+    assert COUNTER.count == before
 
 
 # ---------------------------------------------------------------------------
