@@ -1,0 +1,8 @@
+"""The share of the traced window in which nothing ran on the device."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
