@@ -23,6 +23,7 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Protocol, Tuple
 
+from repro_torch import tracing
 from repro_torch.core.adaptive_frac import AdaptiveFracController
 from repro_torch.core.allocator import DataAllocator
 from repro_torch.core.config import TrainingConfig
@@ -161,7 +162,24 @@ class MasterEventLoop:
         return red.compressor.wire_bytes(grad)
 
     def iteration(self) -> IterationLog:
-        notes = self._process_events()                           # (a),(b)
+        """One iteration, in the spans ``fleet.iteration`` over
+        ``fleet.events``, ``fleet.map``, ``fleet.screen``,
+        ``fleet.deadline`` (keep assignment, late classification),
+        ``fleet.reduce``, ``fleet.monitor``, ``fleet.broadcast`` and
+        ``fleet.publish``. Counters, by each reply's fate:
+        ``fleet.vectors_on_time`` (the log's ``vectors``),
+        ``fleet.vectors_deferred`` (late), ``fleet.vectors_quarantined``;
+        ``fleet.workers_gone`` (workers that closed or were killed before
+        computing). With the cluster's counters, every iteration keeps
+        ``vectors_computed + vectors_resent = vectors_on_time +
+        vectors_deferred + vectors_quarantined + vectors_dropped +
+        vectors_stale``."""
+        with tracing.span("fleet.iteration"):
+            return self._iteration()
+
+    def _iteration(self) -> IterationLog:
+        with tracing.span("fleet.events"):
+            notes = self._process_events()                       # (a),(b)
         self.step += 1
         workers = self.registry.live_workers()
         if not workers:
@@ -170,32 +188,35 @@ class MasterEventLoop:
                                float("nan"), notes)
             self.clock += self.scheduler.T
             self.history.append(log)
-            self._maybe_publish()
+            with tracing.span("fleet.publish"):
+                self._maybe_publish()
             return log
 
         # ---- map phase: budgeted local gradient accumulation ----
-        budgets = {w: self.scheduler.budget(w) for w in workers}  # (d) out
-        deadline = None
-        if self.deadline_quantile is not None:
-            deadline = self.scheduler.deadline(
-                workers, self.deadline_quantile, self.deadline_slack)
-        messages: Dict[str, Tuple[PyTree, float]] = {}
-        results: Dict[str, ComputeResult] = {}
-        died: List[str] = []
-        for w in workers:
-            idx = sorted(self.allocator.workers[w].allocated)
-            res = self.cluster.compute(w, self.reducer.params, budgets[w],
-                                       idx)
-            if res is None:
-                died.append(w)
-                continue
-            results[w] = res
-            if res.n_vectors > 0:
-                messages[w] = (res.grad_sum, res.n_vectors)
+        with tracing.span("fleet.map"):
+            budgets = {w: self.scheduler.budget(w)               # (d) out
+                       for w in workers}
+            deadline = None
+            if self.deadline_quantile is not None:
+                deadline = self.scheduler.deadline(
+                    workers, self.deadline_quantile, self.deadline_slack)
+            messages: Dict[str, Tuple[PyTree, float]] = {}
+            results: Dict[str, ComputeResult] = {}
+            died: List[str] = []
+            for w in workers:
+                idx = sorted(self.allocator.workers[w].allocated)
+                res = self.cluster.compute(w, self.reducer.params,
+                                           budgets[w], idx)
+                if res is None:
+                    died.append(w)
+                    continue
+                results[w] = res
+                if res.n_vectors > 0:
+                    messages[w] = (res.grad_sum, res.n_vectors)
 
-        for w in died:                                           # footnote 5
-            self.submit(LeaveEvent(w))
-            notes.append(f"lost:{w}")
+            for w in died:                                       # footnote 5
+                self.submit(LeaveEvent(w))
+                notes.append(f"lost:{w}")
 
         # ---- guardrail layer 1: finite-ness screen ----
         # a NaN/Inf message is quarantined BEFORE the reduce — excluded
@@ -203,117 +224,76 @@ class MasterEventLoop:
         # residual — and repeat offenders leave through the ordinary
         # membership path
         quarantined: List[str] = []
-        if self.guardrails is not None and messages:
-            messages, quarantined = self.guardrails.screen(messages)
-            for w in quarantined:
-                notes.append(f"quarantine:{w}")
-                if self.guardrails.record_offense(w):
-                    self.submit(LeaveEvent(w))
-                    notes.append(f"evict:{w}")
-
-        # synthetic-compute clusters send empty gradient dicts (throughput
-        # studies): count vectors but skip the parameter update
-        has_grads = any(len(g) > 0 for g, _ in messages.values())
-
-        # per-worker keep counts must precede the deadline split: message
-        # size decides upload time, which decides who makes the deadline
-        keep = None
-        if self.frac_controller is not None and messages and has_grads:
-            # bandwidth/latency estimates from step (d) of PREVIOUS
-            # iterations pick this iteration's per-worker keep counts
-            keep = self.frac_controller.assign(
-                self.reducer.compressor, self.reducer.flat_n,
-                {w: self.scheduler.stats[w] for w in messages})
+        with tracing.span("fleet.screen"):
+            if self.guardrails is not None and messages:
+                messages, quarantined = self.guardrails.screen(messages)
+                for w in quarantined:
+                    notes.append(f"quarantine:{w}")
+                    if self.guardrails.record_offense(w):
+                        self.submit(LeaveEvent(w))
+                        notes.append(f"evict:{w}")
 
         # ---- deadline classification: who makes the reduce? ----
-        uploads: Dict[str, float] = {}
-        upbytes: Dict[str, int] = {}
-        finishes: Dict[str, float] = {}
-        upload_fn = getattr(self.cluster, "upload_time", None)
-        for w, r in results.items():
-            nbytes = (self._predicted_wire_bytes(w, keep, messages[w][0])
-                      if w in messages and has_grads else 0)
-            t_up = (upload_fn(w, nbytes)
-                    if upload_fn is not None and nbytes else 0.0)
-            uploads[w] = t_up
-            upbytes[w] = nbytes
-            finishes[w] = r.latency + r.compute_time + t_up
-        late = (sorted(w for w, f in finishes.items() if f > deadline)
-                if deadline is not None else [])
-        for w in late:
-            notes.append(f"late:{w}")
+        with tracing.span("fleet.deadline"):
+            # synthetic-compute clusters send empty gradient dicts
+            # (throughput studies): count vectors but skip the update
+            has_grads = any(len(g) > 0 for g, _ in messages.values())
+
+            # per-worker keep counts must precede the deadline split:
+            # message size decides upload time, which decides who makes
+            # the deadline
+            keep = None
+            if self.frac_controller is not None and messages and has_grads:
+                # bandwidth/latency estimates from step (d) of PREVIOUS
+                # iterations pick this iteration's per-worker keep counts
+                keep = self.frac_controller.assign(
+                    self.reducer.compressor, self.reducer.flat_n,
+                    {w: self.scheduler.stats[w] for w in messages})
+
+            uploads: Dict[str, float] = {}
+            upbytes: Dict[str, int] = {}
+            finishes: Dict[str, float] = {}
+            upload_fn = getattr(self.cluster, "upload_time", None)
+            for w, r in results.items():
+                nbytes = (self._predicted_wire_bytes(w, keep,
+                                                     messages[w][0])
+                          if w in messages and has_grads else 0)
+                t_up = (upload_fn(w, nbytes)
+                        if upload_fn is not None and nbytes else 0.0)
+                uploads[w] = t_up
+                upbytes[w] = nbytes
+                finishes[w] = r.latency + r.compute_time + t_up
+            late = (sorted(w for w, f in finishes.items() if f > deadline)
+                    if deadline is not None else [])
+            for w in late:
+                notes.append(f"late:{w}")
+            on_time = {w: r for w, r in results.items()
+                       if w not in late and w not in quarantined}
+            vectors = sum(r.n_vectors for r in on_time.values())
+        if tracing.enabled():
+            _count_vectors(results, late, quarantined, vectors, died)
 
         # ---- (c) reduce step (on-time, unquarantined workers only) ----
-        loss = float("nan")
-        wire_bytes = 0
-        per_bytes: Dict[str, int] = {}
-        rolled_back = False
-        on_time = {w: r for w, r in results.items()
-                   if w not in late and w not in quarantined}
-        vectors = sum(r.n_vectors for r in on_time.values())
-        if messages and has_grads:
-            late_msgs = [w for w in late if w in messages]
-            if len(late_msgs) < len(messages):
-                # the round's loss, evaluated at the CURRENT params (the
-                # previous step's output): what the divergence watchdog
-                # judges before another step compounds it
-                tot = sum(messages[w][1] for w in messages
-                          if w not in late)
-                loss = (sum(r.loss_sum for w, r in on_time.items())
-                        / max(tot, 1))
-                if self.guardrails is not None \
-                        and self.guardrails.check_divergence(loss):
-                    # guardrail layer 2: the previous step poisoned the
-                    # params. Restore the last-good snapshot and SKIP this
-                    # round's reduce (its gradients saw diverged params).
-                    self.guardrails.rollback(self.reducer)
-                    rolled_back = True
-                    notes.append("rollback")
-                else:
-                    if self.guardrails is not None:
-                        # this loss vouched for the pre-step params:
-                        # refresh the last-good snapshot BEFORE stepping
-                        self.guardrails.observe_healthy(loss)
-                        self.guardrails.snapshot(self.reducer)
-                    if self.reducer.fused:
-                        # late workers ride the reduce live-masked to
-                        # zero; their corrected gradient parks in their
-                        # residual
-                        self.reducer.reduce_and_step(messages, keep=keep,
-                                                     defer=late_msgs)
-                    else:
-                        # dense path: keep late mass in the residual when
-                        # a compressor channel exists, else drop it
-                        if self.reducer.compressor is not None:
-                            for w in late_msgs:
-                                self.reducer.defer_to_residual(
-                                    w, messages[w][0])
-                        self.reducer.reduce_and_step(
-                            {w: m for w, m in messages.items()
-                             if w not in late}, keep=keep)
-                    wire_bytes = self.reducer.last_wire_bytes
-                    per_bytes = dict(self.reducer.last_per_worker_bytes)
-            elif self.reducer.supports_defer:
-                # every reply missed the deadline: no update this
-                # iteration, but none of the mass is lost
-                for w in late_msgs:
-                    self.reducer.defer_to_residual(w, messages[w][0])
+        with tracing.span("fleet.reduce"):
+            loss, wire_bytes, per_bytes, rolled_back = self._reduce(
+                messages, on_time, late, keep, has_grads, notes)
 
         # ---- (d) latency + bandwidth monitoring ----
         # late workers are still measured: their message DID transit the
         # uplink, just past the deadline
-        for w, r in results.items():
-            nbytes = upbytes[w]
-            self.scheduler.record(w, latency=r.latency,
-                                  vectors=r.n_vectors,
-                                  compute_time=r.compute_time,
-                                  upload_bytes=float(nbytes),
-                                  upload_time=uploads[w] if nbytes else 0.0)
+        with tracing.span("fleet.monitor"):
+            for w, r in results.items():
+                nbytes = upbytes[w]
+                self.scheduler.record(
+                    w, latency=r.latency, vectors=r.n_vectors,
+                    compute_time=r.compute_time, upload_bytes=float(nbytes),
+                    upload_time=uploads[w] if nbytes else 0.0)
 
         # ---- (e) broadcast ----
-        bc_time = self.cluster.broadcast(self.reducer.params,
-                                         [w for w in workers
-                                          if w not in died])
+        with tracing.span("fleet.broadcast"):
+            bc_time = self.cluster.broadcast(self.reducer.params,
+                                             [w for w in workers
+                                              if w not in died])
 
         # the master closes when the last reply lands or at the deadline,
         # whichever is first
@@ -332,8 +312,70 @@ class MasterEventLoop:
             n_late=len(late), deadline=deadline,
             n_quarantined=len(quarantined), rolled_back=rolled_back)
         self.history.append(log)
-        self._maybe_publish()
+        with tracing.span("fleet.publish"):
+            self._maybe_publish()
         return log
+
+    def _reduce(self, messages: Dict[str, Tuple[PyTree, float]],
+                on_time: Dict[str, ComputeResult], late: List[str],
+                keep: Optional[Dict[str, int]], has_grads: bool,
+                notes: List[str]) -> Tuple[float, int, Dict[str, int], bool]:
+        """Step (c): the weighted reduce and the update over the on-time,
+        unquarantined messages; ``(loss, wire bytes, per-worker wire
+        bytes, rolled back)``."""
+        loss = float("nan")
+        wire_bytes = 0
+        per_bytes: Dict[str, int] = {}
+        rolled_back = False
+        if not (messages and has_grads):
+            return loss, wire_bytes, per_bytes, rolled_back
+        late_msgs = [w for w in late if w in messages]
+        if len(late_msgs) < len(messages):
+            # the round's loss, evaluated at the CURRENT params (the
+            # previous step's output): what the divergence watchdog
+            # judges before another step compounds it
+            tot = sum(messages[w][1] for w in messages
+                      if w not in late)
+            loss = (sum(r.loss_sum for w, r in on_time.items())
+                    / max(tot, 1))
+            if self.guardrails is not None \
+                    and self.guardrails.check_divergence(loss):
+                # guardrail layer 2: the previous step poisoned the
+                # params. Restore the last-good snapshot and SKIP this
+                # round's reduce (its gradients saw diverged params).
+                self.guardrails.rollback(self.reducer)
+                rolled_back = True
+                notes.append("rollback")
+            else:
+                if self.guardrails is not None:
+                    # this loss vouched for the pre-step params:
+                    # refresh the last-good snapshot BEFORE stepping
+                    self.guardrails.observe_healthy(loss)
+                    self.guardrails.snapshot(self.reducer)
+                if self.reducer.fused:
+                    # late workers ride the reduce live-masked to
+                    # zero; their corrected gradient parks in their
+                    # residual
+                    self.reducer.reduce_and_step(messages, keep=keep,
+                                                 defer=late_msgs)
+                else:
+                    # dense path: keep late mass in the residual when
+                    # a compressor channel exists, else drop it
+                    if self.reducer.compressor is not None:
+                        for w in late_msgs:
+                            self.reducer.defer_to_residual(
+                                w, messages[w][0])
+                    self.reducer.reduce_and_step(
+                        {w: m for w, m in messages.items()
+                         if w not in late}, keep=keep)
+                wire_bytes = self.reducer.last_wire_bytes
+                per_bytes = dict(self.reducer.last_per_worker_bytes)
+        elif self.reducer.supports_defer:
+            # every reply missed the deadline: no update this
+            # iteration, but none of the mass is lost
+            for w in late_msgs:
+                self.reducer.defer_to_residual(w, messages[w][0])
+        return loss, wire_bytes, per_bytes, rolled_back
 
     def _maybe_publish(self) -> None:
         """Step (e)': hand post-step params to ``publish_fn``; the version
@@ -420,3 +462,18 @@ class MasterEventLoop:
             if callback:
                 callback(log)
         return out
+
+
+def _count_vectors(results: Dict[str, ComputeResult], late: List[str],
+                   quarantined: List[str], on_time: int,
+                   died: List[str]) -> None:
+    """The replies' vectors by fate: on time, late or quarantined (a
+    late, quarantined reply counts as quarantined); and the workers gone
+    before computing."""
+    q = set(quarantined)
+    tracing.count("fleet.vectors_on_time", on_time)
+    tracing.count("fleet.vectors_deferred",
+                  sum(results[w].n_vectors for w in late if w not in q))
+    tracing.count("fleet.vectors_quarantined",
+                  sum(results[w].n_vectors for w in quarantined))
+    tracing.count("fleet.workers_gone", len(died))

@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.flatbuf import tree_leaves, tree_paths
 from repro_torch.core.scheduler import AdaptiveScheduler
 from repro_torch.distributed.sharded_step import ShardedTrainStep
@@ -121,19 +122,27 @@ class ElasticMeshSGD:
         join/leave, (c) weighted reduce + update in the train step, (d)
         scheduler feedback from ``measured_power``, (e) broadcast is
         implicit (the engine holds the one copy of the params). Reading
-        the metrics as floats waits for the device."""
-        dev = self.device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        mask = self.work_mask(batch["tokens"].shape[1])
-        batch["mask"] = mask * batch["mask"] if "mask" in batch else mask
-        self.state, metrics = self._step(self.state, batch)
-        if measured_power:
-            for w, p in measured_power.items():
-                if w in self.scheduler.stats:
-                    self.scheduler.record(w, latency=0.0,
-                                          vectors=max(1, int(p)),
-                                          compute_time=1.0)
-        out = {k: float(v) for k, v in metrics.items()}
+        the metrics as floats waits for the device. Spans: ``mesh.step``
+        over ``mesh.upload`` (the batch and the work mask to the device),
+        ``train.step`` and ``mesh.readback`` (the metrics' floats)."""
+        with tracing.span("mesh.step"):
+            dev = self.device
+            with tracing.span("mesh.upload"):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in batch.items()}
+                mask = self.work_mask(batch["tokens"].shape[1])
+                batch["mask"] = mask * batch["mask"] if "mask" in batch \
+                    else mask
+            with tracing.span("train.step"):
+                self.state, metrics = self._step(self.state, batch)
+            if measured_power:
+                for w, p in measured_power.items():
+                    if w in self.scheduler.stats:
+                        self.scheduler.record(w, latency=0.0,
+                                              vectors=max(1, int(p)),
+                                              compute_time=1.0)
+            with tracing.span("mesh.readback"):
+                out = {k: float(v) for k, v in metrics.items()}
         out["n_live"] = self.n_live
         self.history.append(out)
         return out

@@ -60,6 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.compression import (GradientCompressor,
                                           index_add_drop, randk_indices,
                                           stable_topk_indices)
@@ -395,14 +396,6 @@ class MasterReducer:
         W_cap = self._capacity(W)
         pad = W_cap - W
         dev = self.device
-        grads = self._stack([messages[w][0] for w in names], W_cap)
-        # ns = 0 is the live-mask: vacant capacity rows AND deferred
-        # (deadline-late) workers carry zero weight in the average
-        ns_np = np.zeros(W_cap, np.float32)
-        for i, w in enumerate(names):
-            if w not in defer:
-                ns_np[i] = float(messages[w][1])
-        ns = torch.from_numpy(ns_np).to(dev)
 
         def residual_rows() -> torch.Tensor:
             res = torch.zeros((W_cap, n), dtype=torch.float32, device=dev)
@@ -411,28 +404,24 @@ class MasterReducer:
                     res[i].copy_(self._residuals[w])
             return res
 
-        if self.compressor is None:
+        compressed = self.compressor is not None
+        masked = bool(defer) or any(w in self._residuals for w in names)
+        with tracing.span("reduce.stack"):
+            grads = self._stack([messages[w][0] for w in names], W_cap)
+            res = residual_rows() if masked or compressed else None
+        # ns = 0 is the live-mask: vacant capacity rows AND deferred
+        # (deadline-late) workers carry zero weight in the average
+        ns_np = np.zeros(W_cap, np.float32)
+        for i, w in enumerate(names):
+            if w not in defer:
+                ns_np[i] = float(messages[w][1])
+        ns = torch.from_numpy(ns_np).to(dev)
+
+        if not compressed:
             if keep:
                 raise ValueError("per-worker keep requires a compressor")
-            masked = bool(defer) or any(w in self._residuals
-                                        for w in names)
             key = (W_cap, MASKED_UNCOMPRESSED if masked else None)
-            fn = self._step_fns.get(key)
-            if fn is None:
-                fn = self._step_fns[key] = self._build_step_fn(*key)
-            res = residual_rows() if masked else None
-            self._flat, self.opt_state, new_res = fn(
-                self._flat, self.opt_state, grads, res, ns, None, None, None)
-            if masked:
-                # on-time rows leave an all-zero residual: keep the dict
-                # sparse (only deferred mass is worth holding)
-                for i, w in enumerate(names):
-                    if w in defer:
-                        self._residuals[w] = new_res[i]
-                    else:
-                        self._residuals.pop(w, None)
-            self.last_per_worker_bytes = {w: 4 * n for w in on_time}
-            self.last_wire_bytes = len(on_time) * 4 * n
+            args = (None, None, None)
         else:
             comp = self.compressor
             # per-worker keep totals, snapped to the compressor's lattice
@@ -450,14 +439,27 @@ class MasterReducer:
                 k_of = dict(k_tot)
             k_list = [k_of.get(w, 0) for w in names] + [0] * pad
             k_arr = torch.tensor(k_list, dtype=torch.int32).to(dev)
-            fn = self._step_fns.get((W_cap, kmax))
-            if fn is None:
-                fn = self._step_fns[(W_cap, kmax)] = self._build_step_fn(
-                    W_cap, kmax)
+            key = (W_cap, kmax)
+            args = (k_arr, [i for i, k in enumerate(k_list) if k > 0],
+                    self.step)
+        fn = self._step_fns.get(key)
+        if fn is None:
+            fn = self._step_fns[key] = self._build_step_fn(*key)
+        with tracing.span("reduce.step", device=dev):
             self._flat, self.opt_state, new_res = fn(
-                self._flat, self.opt_state, grads, residual_rows(), ns,
-                k_arr, [i for i, k in enumerate(k_list) if k > 0],
-                self.step)
+                self._flat, self.opt_state, grads, res, ns, *args)
+        if not compressed:
+            if masked:
+                # on-time rows leave an all-zero residual: keep the dict
+                # sparse (only deferred mass is worth holding)
+                for i, w in enumerate(names):
+                    if w in defer:
+                        self._residuals[w] = new_res[i]
+                    else:
+                        self._residuals.pop(w, None)
+            self.last_per_worker_bytes = {w: 4 * n for w in on_time}
+            self.last_wire_bytes = len(on_time) * 4 * n
+        else:
             for i, w in enumerate(names):
                 self._residuals[w] = new_res[i]
             self.last_per_worker_bytes = {w: 8 * k_tot[w] for w in on_time}

@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.event_loop import ComputeResult
 from repro_torch.core.flatbuf import build_tree, tree_map, tree_paths
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
@@ -326,6 +327,19 @@ class SimulatedCluster:
 
     def compute(self, worker: str, params: PyTree, budget: float,
                 indices: List[int]) -> Optional[ComputeResult]:
+        """One worker's map step in the span ``fleet.worker``, over
+        ``worker.rows`` (row sampling, the index upload and the gather)
+        and ``grad_fn``'s own spans. Counters: ``fleet.vectors_computed``
+        (the rows this worker computed; a synthetic worker's are
+        nominal), ``fleet.vectors_dropped`` (the rows of a reply its
+        uplink lost), and for a stale reply ``fleet.vectors_stale`` (the
+        fresh rows it replaced) and ``fleet.vectors_resent`` (the old
+        rows it re-sent, computed in an earlier round)."""
+        with tracing.span("fleet.worker"):
+            return self._compute(worker, params, budget, indices)
+
+    def _compute(self, worker: str, params: PyTree, budget: float,
+                 indices: List[int]) -> Optional[ComputeResult]:
         sw = self.workers[worker]
         if worker in self._kill_pending:
             self._kill_pending.discard(worker)
@@ -340,19 +354,26 @@ class SimulatedCluster:
         self.total_grad_bytes += self.network.grad_bytes
         if n == 0:
             return ComputeResult({}, 0, budget, latency, 0.0)
-        take = sw.rng.choice(len(indices), size=n, replace=False)
-        idx = np.asarray(indices)[take]
+        with tracing.span("worker.rows"):
+            take = sw.rng.choice(len(indices), size=n, replace=False)
+            idx = np.asarray(indices)[take]
+            if self.mode != "synthetic":
+                X, y = self.data
+                ix = torch.from_numpy(np.asarray(idx, np.int64)).to(
+                    self.device)
+                Xb, yb = X[ix], y[ix]
         if self.mode == "synthetic":
+            tracing.count("fleet.vectors_computed", n)
             kind = self._fault_kind(sw)      # keeps schedules in step
             delivered, extra = self._uplink_delivery(sw, kind)
             if not delivered:
+                tracing.count("fleet.vectors_dropped", n)
                 return ComputeResult({}, 0, n / sw.profile.power_vps,
                                      latency + extra, 0.0)
             return ComputeResult({}, int(n), n / sw.profile.power_vps,
                                  latency + extra, 0.0)
-        X, y = self.data
-        ix = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
-        grad_sum, loss_sum = self.grad_fn(params, X[ix], y[ix])
+        grad_sum, loss_sum = self.grad_fn(params, Xb, yb)
+        tracing.count("fleet.vectors_computed", n)
         reply_n = int(n)
         loss_sum = float(loss_sum)
         kind = self._fault_kind(sw)
@@ -366,6 +387,8 @@ class SimulatedCluster:
             grad_sum = tree_map(lambda g: g * scale, grad_sum)
         elif kind == "stale" and worker in self._last_reply:
             grad_sum, reply_n, loss_sum = self._last_reply[worker]
+            tracing.count("fleet.vectors_stale", n)
+            tracing.count("fleet.vectors_resent", reply_n)
         if kind is None:
             # only CLEAN replies seed the stale cache: a stale fault
             # re-sends the last genuine message, not a poisoned one
@@ -373,6 +396,7 @@ class SimulatedCluster:
         delivered, extra = self._uplink_delivery(sw, kind)
         latency += extra
         if not delivered:
+            tracing.count("fleet.vectors_dropped", reply_n)
             return ComputeResult({}, 0, n / sw.profile.power_vps,
                                  latency, 0.0)
         return ComputeResult(grad_sum, reply_n, n / sw.profile.power_vps,
@@ -486,7 +510,10 @@ def make_lm_problem(cfg, n_data: int = 512, seq_len: int = 16,
     and y their one-step-shifted labels (numpy). grad_fn(params, X, y)
     returns (grad_SUM, loss_SUM) per the paper's sum-then-weighted-average
     protocol, computing on ``device``: the gradient tree has the params'
-    key paths, one leaf per ``tree_leaves(params)`` leaf."""
+    key paths, one leaf per ``tree_leaves(params)`` leaf. Its spans:
+    ``worker.forward``, ``worker.backward`` (the host launching the
+    work) and ``worker.readback`` (the loss's float: the host waiting
+    for the device)."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import softmax_xent
 
@@ -498,13 +525,18 @@ def make_lm_problem(cfg, n_data: int = 512, seq_len: int = 16,
     y = np.stack([stream[i + 1:i + 1 + seq_len] for i in range(n_data)])
 
     def grad_fn(params, Xb, yb):
-        paths, leaves = zip(*[(p, x.detach().requires_grad_(True))
-                              for p, x in tree_paths(params)])
-        logits, _ = tf.forward(build_tree(paths, leaves), cfg,
-                               torch.as_tensor(Xb, device=dev), remat=False)
-        s, _ = softmax_xent(logits, torch.as_tensor(yb, device=dev))
-        grads = torch.autograd.grad(s, leaves)
-        return build_tree(paths, list(grads)), float(s.detach())
+        with tracing.span("worker.forward"):
+            paths, leaves = zip(*[(p, x.detach().requires_grad_(True))
+                                  for p, x in tree_paths(params)])
+            logits, _ = tf.forward(build_tree(paths, leaves), cfg,
+                                   torch.as_tensor(Xb, device=dev),
+                                   remat=False)
+            s, _ = softmax_xent(logits, torch.as_tensor(yb, device=dev))
+        with tracing.span("worker.backward"):
+            grads = build_tree(paths, list(torch.autograd.grad(s, leaves)))
+        with tracing.span("worker.readback"):
+            loss = float(s.detach())
+        return grads, loss
 
     return (X, y), grad_fn
 

@@ -10,12 +10,19 @@ and on a CUDA tensor it launches the hand-written kernel or raises.
 argument (default ``"cuda"``): asking for CUDA on a machine without it
 raises instead of quietly running on the CPU, and on the card it turns
 TF32 off so float32 matrix products and convolutions stay float32.
+
+The launch counters (``COUNTERS``, ``LaunchCounter``, ``launch_counter``,
+``reset_counters``) are ``repro_torch.tracing``'s one counter registry,
+importable here under the names the kernels and their callers use.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Union
 
 import torch
+
+from repro_torch.tracing import (COUNTERS, LaunchCounter,  # noqa: F401
+                                 launch_counter, reset_counters)
 
 DeviceLike = Union[str, torch.device]
 
@@ -56,31 +63,3 @@ def require_hopper(device: DeviceLike = "cuda") -> str:
             f"{torch.cuda.get_device_name(dev)} has compute capability "
             f"{cap[0]}.{cap[1]}")
     return torch.cuda.get_device_name(dev)
-
-
-class LaunchCounter:
-    """Counts launches of one hand-written kernel. The wrapper adds one
-    exactly where it launches the kernel (never on the plain path), so a
-    run can prove its main path went through the kernel."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
-# every kernel's counter, by kernel name (filled as kernel modules import)
-COUNTERS: Dict[str, LaunchCounter] = {}
-
-
-def launch_counter(name: str) -> LaunchCounter:
-    if name not in COUNTERS:
-        COUNTERS[name] = LaunchCounter(name)
-    return COUNTERS[name]
-
-
-def reset_counters() -> None:
-    for c in COUNTERS.values():
-        c.reset()

@@ -26,6 +26,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import (AdaptiveScheduler, GradientCompressor,
                               JoinEvent, LeaveEvent, MasterEventLoop,
                               MasterReducer, UploadDataEvent)
@@ -148,28 +149,36 @@ def main(argv=None) -> int:
 
 
 def print_trace(args, dev: torch.device) -> None:
-    """Run the scenario again (warm) under ``torch.profiler``; print the
-    ops with the most self time on the device (or the CPU, without a
-    card), the device's busy share of the wall time and the per-iteration
-    host times."""
+    """Run the scenario again (warm) under ``torch.profiler`` with the
+    program's spans on; print the ops with the most self time on the
+    device (or the CPU, without a card), the device's busy share of the
+    wall time, the per-iteration host times and, on a card, the device's
+    idle time by the span the host was in."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run = run_demo(iterations=args.iterations, n_data=args.n_data,
-                       seed=args.seed, device=dev)
-        wall = time.perf_counter() - t0
+    tracing.enable()
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run = run_demo(iterations=args.iterations, n_data=args.n_data,
+                           seed=args.seed, device=dev)
+            wall = time.perf_counter() - t0
+    finally:
+        tracing.disable()
+        tracing.reset()
     ka = prof.key_averages()
     key = "self_device_time_total" if dev.type == "cuda" \
         else "self_cpu_time_total"
     print(ka.table(sort_by=key, row_limit=15))
     # device busy time: the device-side (kernel / memcpy) events only;
-    # the aten ops that launched them carry the same time again
+    # the aten ops that launched them, and the spans' device-side
+    # ranges, carry the same time again
     busy_us = sum(e.self_device_time_total for e in ka
-                  if e.device_type != torch.autograd.DeviceType.CPU)
+                  if e.device_type != torch.autograd.DeviceType.CPU
+                  and not getattr(e, "is_user_annotation", False))
     iters = len(run.iter_s)
     print(f"trace: wall {wall:.3f}s for {iters} iterations (eval "
           f"included); device busy {busy_us / 1e6:.3f}s "
@@ -177,6 +186,11 @@ def print_trace(args, dev: torch.device) -> None:
           f"{busy_us / 1e3 / max(iters, 1):.2f} ms device time per "
           f"iteration; host ms per iteration "
           f"{[round(1e3 * x, 2) for x in run.iter_s]}")
+    if dev.type == "cuda":
+        idle = tracing.profile_idle_by_span(prof)
+        print("idle by span: " + ", ".join(
+            f"{k} {1e3 * v:.2f} ms" for k, v in
+            sorted(idle.items(), key=lambda kv: -kv[1])))
 
 
 if __name__ == "__main__":

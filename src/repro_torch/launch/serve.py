@@ -325,15 +325,22 @@ def print_trace(engine, reqs, device) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import tracing
+
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        stats = engine.run_closed_loop(reqs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
+    tracing.enable()                # the spans enter the profiler's trace
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            stats = engine.run_closed_loop(reqs)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+    finally:
+        tracing.disable()
+        tracing.reset()
     ka = prof.key_averages()
     key = "self_device_time_total" if device.type == "cuda" \
         else "self_cpu_time_total"

@@ -73,6 +73,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.flatbuf import tree_paths
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
@@ -795,7 +796,7 @@ class ServingEngine:
             kb[s] = min(k, st.req.max_new - len(st.gen) - 1)
         draft_dispatches = 0
         if (kb > 0).any():
-            with torch.profiler.record_function("spec.draft"):
+            with tracing.span("spec.draft"):
                 drafts = self._draft(spec.draft_params, self._dev(win),
                                      self._dev(hlen)).cpu().numpy()
             draft_dispatches = 1
@@ -825,7 +826,7 @@ class ServingEngine:
                 cl[s] = 1 + nkb
             args = (self._versions[ver], self._dev(tokens), self._dev(off),
                     self._dev(cl), self.cache)
-            with torch.profiler.record_function("spec.verify"):
+            with tracing.span("spec.verify"):
                 if self.paged:
                     rmap, wmap = self._decode_page_maps(group)
                     logits, _ = self._programs.verify(*args, self._dev(rmap),

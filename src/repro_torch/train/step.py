@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.flatbuf import build_tree, tree_paths
 from repro_torch.models import transformer as tf
@@ -52,7 +53,11 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     count, so an all-masked batch reports 1.0), ``aux_loss``,
     ``total_loss``, as 0-d tensors on that device. The returned function
     carries its parts as attributes (``cfg``, ``optimizer`` and
-    ``loss_and_grads``) for ``distributed/sharded_step.py``."""
+    ``loss_and_grads``) for ``distributed/sharded_step.py``. Its spans
+    (``repro_torch.tracing``, with CUDA events on the card):
+    ``train.forward`` (forward and loss), ``train.backward``
+    (``autograd.grad`` with remat's recompute, and the zero-filled
+    leaves it did not reach), ``train.optimizer``."""
     del unroll                       # a JAX choice; nothing to unroll here
     extra = {"vlm": "prefix", "audio": "frames"}.get(cfg.arch_type)
 
@@ -61,24 +66,28 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
         ``reduce_sums`` (the sharded step's) maps the local ``(sum_nll,
         count)`` to the global ones before the division, so a rank's
         gradient is its share of the global loss's."""
-        paths, leaves = zip(*[(p, x.detach().requires_grad_(True))
-                              for p, x in tree_paths(params)])
-        kw = {extra: batch[extra]} if extra else {}
-        with torch.enable_grad():
-            logits, aux = tf.forward(build_tree(paths, leaves), cfg,
-                                     batch["tokens"], remat=remat, **kw)
-            sum_nll, count = softmax_xent(logits, batch["labels"],
-                                          batch["mask"])
-            total_nll = sum_nll
-            if reduce_sums is not None:
-                total_nll, count = reduce_sums(sum_nll.detach(), count)
-            # weighted reduce: gradient of (global sum / global count) ==
-            # (sum_w grad_sum_w) / (sum_w n_w) — the master's average
-            count = torch.clamp(count, min=1.0)
-            loss = sum_nll / count + aux_weight * aux
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
+        dev = batch["tokens"].device
+        with tracing.span("train.forward", device=dev):
+            paths, leaves = zip(*[(p, x.detach().requires_grad_(True))
+                                  for p, x in tree_paths(params)])
+            kw = {extra: batch[extra]} if extra else {}
+            with torch.enable_grad():
+                logits, aux = tf.forward(build_tree(paths, leaves), cfg,
+                                         batch["tokens"], remat=remat, **kw)
+                sum_nll, count = softmax_xent(logits, batch["labels"],
+                                              batch["mask"])
+                total_nll = sum_nll
+                if reduce_sums is not None:
+                    total_nll, count = reduce_sums(sum_nll.detach(), count)
+                # weighted reduce: gradient of (global sum / global count)
+                # == (sum_w grad_sum_w) / (sum_w n_w) — the master's average
+                count = torch.clamp(count, min=1.0)
+                loss = sum_nll / count + aux_weight * aux
+        with tracing.span("train.backward", device=dev):
+            with torch.enable_grad():
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, grads)]
         mean = (total_nll / count).detach()
         metrics = {"loss": mean, "tokens": count.detach(),
                    "aux_loss": aux.detach(),
@@ -87,8 +96,9 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
 
     def train_step(state, batch):
         grads, metrics = loss_and_grads(state["params"], batch)
-        new_params, new_opt = optimizer.update(state["params"], grads,
-                                               state["opt"])
+        with tracing.span("train.optimizer", device=batch["tokens"].device):
+            new_params, new_opt = optimizer.update(state["params"], grads,
+                                                   state["opt"])
         return {"params": new_params, "opt": new_opt}, metrics
 
     # the parts the sharded step (distributed/sharded_step.py) reuses
