@@ -192,8 +192,9 @@ result):
    ``main`` in this process trains ``mlitb-lm-100m`` at full width
    through ``ElasticMeshSGD`` (300 steps of 8 x 256, 4 virtual workers,
    worker 1 leaving at step 100 and rejoining at 200, AdaGrad lr 0.003,
-   the counters reset just before and read just after: no kernel
-   launched): every loss finite, tokens exactly 2048 / 1536 at 4 / 3 live
+   the counters reset just before and read just after: the model's
+   products through ``gemm_3xtf32`` and no other kernel):
+   every loss finite, tokens exactly 2048 / 1536 at 4 / 3 live
    workers, the last 20 steps' mean loss below the first 20's; the
    research closure it writes reloads to the trained params bit for bit
    and ``serve_batch`` (8 x 32 prompts, 16 tokens) serves the same tokens
@@ -304,6 +305,15 @@ result):
    the warp path against the select kernel at W 512 and the select
    kernel at 1024, held and timed (the compressor's wide rows, NaN / tie
    rows and rows past shared memory are also held in phase 3);
+11c. gemm — the model step's 3xTF32 product (``scripts/time_gemm.py``'s
+   checks: every operand layout on ragged shapes against a float64
+   product beside cuBLAS float32's own error, split-K repeated bit for
+   bit, operands the kernel cannot read in place copied and launched,
+   ``linear``'s gradients against float64 autograd); then each cell's
+   products (forward, dX, dW) and an 8-row decode product, each timed
+   from a CUDA graph beside ``torch.matmul`` (TF32 off), the plain
+   version and its 3xTF32 bound, every one held to 4x cuBLAS float32's
+   error against float64 (or 2e-6);
 12. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -357,6 +367,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels.gemm_3xtf32 import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.topk_compress import ops as tk_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
@@ -1862,7 +1873,8 @@ def phase_train_serve(card: str) -> dict:
     torch.cuda.synchronize()
     launches = fd_ops.COUNTER.count
     other = {k: c.count for k, c in runtime.COUNTERS.items()
-             if c.count and k != fd_ops.COUNTER.name}
+             if c.count and k not in (fd_ops.COUNTER.name,
+                                      gemm_ops.LAUNCHES.name)}
     peak = torch.cuda.max_memory_allocated()
     st, eng = out["stats"], out["engine"]
     losses = check_reduce_losses(out["logs"], f"[train-serve] {ARCH}")
@@ -3528,9 +3540,11 @@ def phase_mesh_train(card: str) -> dict:
     if not last < first:
         raise AssertionError(f"[mesh-train] loss did not fall: first 20 "
                              f"mean {first}, last 20 {last}")
-    if any(launches.values()):
-        raise AssertionError(f"[mesh-train] the training path launched "
-                             f"kernels: {launches}")
+    # the model's products, and nothing else, run a hand-written kernel
+    if not launches.get(gemm_ops.LAUNCHES.name) or any(
+            v for k, v in launches.items() if k != gemm_ops.LAUNCHES.name):
+        raise AssertionError(f"[mesh-train] the training path's launches "
+                             f"{launches}: want gemm_3xtf32's alone")
     # the closure, reloaded, serves what the in-memory params serve
     clo = ResearchClosure.load(path)
     Path(path).unlink()
@@ -5027,12 +5041,38 @@ def d2_rows(d2: dict, name: str) -> dict:
     return {n: {k: r.get(k) for k in keys} for n, r in d2[name].items()}
 
 
+def phase_gemm(card: str) -> dict:
+    """[gemm]: the 3xTF32 product (``scripts/time_gemm.py``'s checks and
+    timings): every layout on ragged shapes, split-K repeated bit for
+    bit, copied operands, ``linear``'s gradients; then the cells' shapes
+    and a decode shape, forward and both gradients, against cuBLAS
+    float32 (TF32 off) and float64, each held to ``time_gemm.within``'s
+    limit."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    tg = importlib.import_module("time_gemm")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    t0 = time.perf_counter()
+    checks = tg.checks(gen)
+    rows = []
+    for cell, name, M, N, K, ar, br in tg.shapes():
+        rows.append(tg.time_shape(cell, name, M, N, K, ar, br, gen, 5))
+        print(tg.row_line(rows[-1]) + f" | {card}")
+    tg.gate(rows)
+    worst = max(r["rel_err"] / r["cublas_rel_err"] for r in rows
+                if r["cell"] == "lm")
+    print(f"[gemm] {len(checks)} checks, {len(rows)} shapes in "
+          f"{time.perf_counter() - t0:.1f} s; LM shapes' error at most "
+          f"{worst:.2f}x cuBLAS f32's | {card}")
+    return {"checks": checks, "rows": rows}
+
+
 def build_all() -> dict:
     """Build every kernel from this checkout, one nvcc per source, all
     started together."""
     libs = {"flash_decode": fd_ops.library, "fused_compress": tk_ops.library,
             "block_topk": tk_ops.block_topk_library,
-            "flash_attention": fa_ops.library, "ssd_scan": ssd_ops.library}
+            "flash_attention": fa_ops.library, "ssd_scan": ssd_ops.library,
+            "gemm_3xtf32": gemm_ops.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as ex:
         futs = {name: ex.submit(fn) for name, fn in libs.items()}
@@ -5108,6 +5148,9 @@ def main() -> int:
     t15 = time.perf_counter()
     d2 = phase_d2(card)
     d2["seconds"] = time.perf_counter() - t15
+    gemm = phase_gemm(card)
+    gemm_lm = next(r for r in gemm["rows"]
+                   if (r["cell"], r["product"]) == ("lm", "q|o.fwd"))
     del main_api
     demo = fused["demo"]
     fa_t = fa["timing"]["mlitb-lm-100m prefill"]
@@ -5198,6 +5241,20 @@ def main() -> int:
          "library_ms": ssd["library_ms"], "ms_b1": ssd["b1"]["ms"],
          "plain_ms_b1": ssd["b1"]["plain_ms"],
          "bound_ms_b1": ssd["b1"]["bound_ms"]},
+        {"name": "gemm_3xtf32", "route": "cuda",
+         "source": "src/repro_torch/kernels/gemm_3xtf32/gemm_3xtf32.cu",
+         "replaces": None,
+         "design": "persistent 128 x 128 tiles: TMA producer warp, 3 "
+                   "warps split B into TF32 planes, 2 consumer warpgroups "
+                   "(A split in registers, wgmma m64n128k8 x 3 a k-step, "
+                   "each 32-deep stage added in IEEE float32); split-K "
+                   "summed in a fixed order",
+         "launches_mesh_train": mesh["launches"][gemm_ops.LAUNCHES.name],
+         "max_rel_err": max(r["rel_err"] for r in gemm["rows"]),
+         "ms": gemm_lm["us"] * 1e-3, "plain_ms": gemm_lm["plain_us"] * 1e-3,
+         "bound_ms": gemm_lm["bound_us"] * 1e-3, "bound_by": "operations",
+         "library_ms": gemm_lm["library_us"] * 1e-3,
+         "shapes": gemm["rows"]},
     ]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -5213,7 +5270,7 @@ def main() -> int:
          "dist": dist,
          "api_launches": launches,
          "flash_attention": fa,
-         "ssd_scan": ssd, "block_topk": bt, "d2": d2,
+         "ssd_scan": ssd, "block_topk": bt, "d2": d2, "gemm": gemm,
          "total_s": time.perf_counter() - t_start},
         indent=1, default=str))
     slice8 = (spec["seconds"], oneshot["seconds"],

@@ -6,6 +6,9 @@ JAX package's public kernel API (``repro.kernels``):
   ssd_scan/         Mamba2 chunked state-space scan
   topk_compress/    block top-1 sparsification and the fused
                     error-feedback block-top-k compressor (paper §5.1)
+  gemm_3xtf32/      the model step's float32 linear products as 3xTF32
+                    on the tensor cores (``linear``; no TPU counterpart,
+                    so not part of the JAX package's API below)
 
 Importing builds nothing: each kernel is compiled by nvcc at its first
 launch on the card (``build.py``).

@@ -29,6 +29,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.kernels.gemm_3xtf32 import linear
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.layers import (Init, apply_rope, as_dtype, f32,
                                        rmsnorm, rope_tables, rotate)
@@ -68,7 +69,8 @@ def init_attention(init: Init, path: str, d: int, n_heads: int,
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
     B, S, d = x.shape
-    return (x.reshape(B * S, d) @ w.reshape(d, -1)).view(B, S, *w.shape[1:])
+    return linear(x.reshape(B * S, d), w.reshape(d, -1)).view(
+        B, S, *w.shape[1:])
 
 
 def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor):
@@ -107,7 +109,8 @@ def _out_proj(p: Params, o: torch.Tensor, split: bool = False
     the bias."""
     B, S, H, hd = o.shape
     wo = p["wo"]
-    out = (o.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(B, S, -1)
+    out = linear(o.reshape(B * S, H * hd), wo.reshape(H * hd, -1)).view(
+        B, S, -1)
     if split:
         out = tp.reduce_from_model(out)
     if "bo" in p:

@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.counter_hash import chain_key
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.kernels.gemm_3xtf32 import linear
 
 Params = Mapping[str, Any]
 
@@ -198,17 +199,17 @@ def mlp(p: Params, x: torch.Tensor, act: str,
     if split:
         x = tp.copy_to_model(x)
     if "w_gate" in p:
-        g = x @ p["w_gate"]
-        u = x @ p["w_up"]
+        g = linear(x, p["w_gate"])
+        u = linear(x, p["w_up"])
         h = (F.silu(g) if act == "silu"
              else F.gelu(g, approximate="tanh")) * u
-        out = h @ p["w_down"]
+        out = linear(h, p["w_down"])
         return tp.reduce_from_model(out) if split else out
-    h = x @ p["w_up"]
+    h = linear(x, p["w_up"])
     if "b_up" in p:
         h = h + p["b_up"]
     h = F.gelu(h, approximate="tanh")
-    out = h @ p["w_down"]
+    out = linear(h, p["w_down"])
     if split:
         out = tp.reduce_from_model(out)
     if "b_down" in p:
@@ -238,7 +239,7 @@ def unembed(table: torch.Tensor, x: torch.Tensor,
     logits' columns."""
     if split:
         x = tp.copy_to_model(x)
-    return f32(x) @ f32(table).t()
+    return linear(f32(x), f32(table).t())
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.kernels.gemm_3xtf32 import linear
 from repro_torch.models.layers import Init, as_dtype, f32, rmsnorm
 
 Params = Dict[str, Any]
@@ -229,7 +230,7 @@ def _post_core(p: Params, y: torch.Tensor, xs: torch.Tensor,
     sums."""
     y = y + p["D"][:, None] * f32(xs)
     y = y.reshape(*x.shape[:-1], -1).to(x.dtype)
-    out = _gated_norm(p, y * F.silu(z), split) @ p["out_proj"]
+    out = linear(_gated_norm(p, y * F.silu(z), split), p["out_proj"])
     return tp.reduce_from_model(out) if split else out
 
 
@@ -278,7 +279,7 @@ def ssm_prefill(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig
 
 def _ssm_seq(p, x, d, cfg, sequential, split=False):
     dims = _dims(d, cfg, tp.current().size if split else 1)
-    proj = x @ p["in_proj"]
+    proj = linear(x, p["in_proj"])
     _, xc, _ = _split_proj(proj, dims, cfg)
     z, xs, Bm, Cm, dt, A = _pre_core(
         p, proj, causal_conv(p["conv_w"], p["conv_b"], xc), dims, cfg)
@@ -296,7 +297,7 @@ def ssm_decode(p: Params, x: torch.Tensor, state: Params, d: int,
     (B,W-1,C)}. The conv sums its taps in ``causal_conv``'s order, so it
     gives the prefill's bits for the same inputs."""
     dims = _dims(d, cfg)
-    proj = x @ p["in_proj"]                                 # (B,1,P)
+    proj = linear(x, p["in_proj"])                          # (B,1,P)
     _, xc, _ = _split_proj(proj, dims, cfg)
     hist = torch.cat([state["conv"], xc], dim=1)            # (B,W,C)
     w = p["conv_w"]
