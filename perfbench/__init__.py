@@ -9,5 +9,6 @@ configuration (``configs/``), its traffic mix (``workloads/``, which also
 names the driver in ``drivers/``), its correctness limits (``limits/``),
 and one reader per metric (``endtoend/``, ``metrics/``). The plain
 reference that decides ``correct`` lives in ``reference/`` and imports
-nothing of the program.
+nothing of the program; each model family is a module of
+``reference/families/``, found by the configuration's ``arch_type``.
 """

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import typing
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -47,13 +48,32 @@ class Step:
 
 def program_config(cfg: dict):
     """The configuration file as the program's ``ArchConfig``."""
-    from repro_torch.configs.base import ArchConfig, SSMConfig
+    from repro_torch.configs.base import ArchConfig
 
-    fields = {f.name for f in dataclasses.fields(ArchConfig)}
-    kw = {k: v for k, v in cfg.items() if k in fields}
-    if kw.get("ssm") is not None:
-        kw["ssm"] = SSMConfig(**kw["ssm"])
-    return ArchConfig(**kw)
+    return _dataclass(ArchConfig, cfg)
+
+
+def _dataclass(cls, values: dict):
+    """``cls`` from the entries of ``values`` that name its fields, each
+    nested group built as the dataclass its field's type names (``ssm``:
+    ``SSMConfig``, ``moe``: ``MoEConfig``, ...)."""
+    types = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in values:
+            continue
+        v = values[f.name]
+        sub = _dataclass_type(types[f.name])
+        kw[f.name] = _dataclass(sub, v) if sub and isinstance(v, dict) else v
+    return cls(**kw)
+
+
+def _dataclass_type(tp):
+    """The dataclass a field's type names, itself or inside ``Optional``."""
+    for t in (tp, *typing.get_args(tp)):
+        if dataclasses.is_dataclass(t):
+            return t
+    return None
 
 
 class Spans:

@@ -4,13 +4,9 @@ least time, and the chip's peaks (``peaks.json``).
 A trained token costs 6 x the matrix parameters it passes through (two
 FLOPs a multiply-add, forward and the two products of the backward pass;
 the tied head counts, the embedding's gather does not), plus the
-sequence mixing's products, also x 3:
-
-- causal attention: per layer 2 hd H (S + 1) forward (Q K^T and P V over
-  the (S + 1) / 2 keys a query sees on average), so 6 hd H (S + 1);
-- the chunked SSD at chunk Q, causal pairs only, per layer forward:
-  (Q + 1) N (C B^T) + (Q + 1) H hd (the masked product with x)
-  + 2 N H hd (the chunk's state) + 2 N H hd (reading it out).
+sequence mixing's products, also x 3. Both counts are the family's
+(``reference.families.<arch_type>``: ``matmul_params``,
+``mixing_flops_per_token``, whose docstrings give the mixing's count).
 
 Recomputation (remat) is not counted: the FLOPs are the ones the passes
 require."""
@@ -20,7 +16,7 @@ import json
 from pathlib import Path
 from typing import Sequence
 
-from perfbench.reference.models import ssm_dims
+from perfbench.reference.models import family
 
 PEAKS = json.loads((Path(__file__).with_name("peaks.json")).read_text())
 MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -29,27 +25,12 @@ ELEMENT_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2,
 
 
 def matmul_params(cfg: dict) -> int:
-    d, L, V = cfg["d_model"], cfg["n_layers"], cfg["vocab_size"]
-    if cfg["arch_type"] == "dense":
-        H, K, hd, ff = (cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"],
-                        cfg["d_ff"])
-        per = d * H * hd + 2 * d * K * hd + H * hd * d + 3 * d * ff
-    elif cfg["arch_type"] == "ssm":
-        m = ssm_dims(cfg)
-        per = d * m["proj"] + m["di"] * d
-    else:
-        raise ValueError(cfg["arch_type"])
-    return L * per + V * d            # the head (tied or not) once
+    return family(cfg).matmul_params(cfg)
 
 
 def mixing_flops_per_token(cfg: dict, seq: int) -> int:
     """Forward FLOPs a token of the sequence mixing's products, all layers."""
-    L = cfg["n_layers"]
-    if cfg["arch_type"] == "dense":
-        return L * 2 * cfg["head_dim"] * cfg["n_heads"] * (seq + 1)
-    m = ssm_dims(cfg)
-    Q, N, hp = m["chunk"], m["n"], m["nh"] * m["hd"]
-    return L * ((Q + 1) * N + (Q + 1) * hp + 4 * N * hp)
+    return family(cfg).mixing_flops_per_token(cfg, seq)
 
 
 def train_flops_per_token(cfg: dict, seq: int) -> int:

@@ -2,9 +2,11 @@
 the check against the reference, and the result line.
 
 Everything is found by name from ``BENCHMARK.json``: the cell's
-configuration file, its traffic mix ``workloads/<traffic>.json`` (which
-names its driver ``drivers/<driver>.py``), its limits
-``limits/<cell>.json``, and a reader module for each of its metrics
+configuration file (and by its ``arch_type`` the reference's family
+module, ``reference/families/<arch_type>.py``), its traffic mix
+``workloads/<traffic>.json`` (which names its driver
+``drivers/<driver>.py``), its limits ``limits/<cell>.json``, and a
+reader module for each of its metrics
 (``endtoend/<name>.py``, ``metrics/<name>.py``). A metric named
 ``<reader>.<variant>`` is read by ``<reader>``'s module: one quantity,
 named apart in cells that report another end-to-end metric (the fleet's
@@ -13,8 +15,11 @@ per-layer metrics that move it).
 
 The window runs whole steps until ``--seconds`` have passed; each step
 ends synchronised, so its rate is all the window's work over all its
-time. A trace run then profiles a few more steps. The program's state is
-freed, and the device's peak read, before the reference runs.
+time. In a trace run the program's own spans and counters
+(``repro_torch.tracing``) are on for the window alone, drained into
+``Run`` after it; the run then profiles a few more steps with them off.
+The program's state is freed, and the device's peak read, before the
+reference runs.
 """
 from __future__ import annotations
 
@@ -58,6 +63,8 @@ class Window:
 class Run:
     trace: object = None
     spans: Dict[str, List[float]] = field(default_factory=dict)
+    program_spans: Dict[str, List[float]] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
     steps: List[float] = field(default_factory=list)
     peak_window_bytes: int = 0
     flops_per_token: float = 0.0
@@ -120,16 +127,24 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     print("setup: " + ", ".join(f"{k} {v:.3f} s" for k, v in
                                 [("imports", before), *drv.phases.items()]),
           file=sys.stderr)
+    if trace:
+        from repro_torch import tracing
+        tracing.reset()
+        tracing.enable()
     steps, tokens, failed = [], 0.0, 0
-    while True:
-        a = time.perf_counter()
-        st = drv.step()
-        b = time.perf_counter()
-        steps.append(1e3 * (b - a))
-        tokens += st.tokens
-        failed += int(st.failed)
-        if b - start >= seconds:
-            break
+    try:
+        while True:
+            a = time.perf_counter()
+            st = drv.step()
+            b = time.perf_counter()
+            steps.append(1e3 * (b - a))
+            tokens += st.tokens
+            failed += int(st.failed)
+            if b - start >= seconds:
+                break
+    finally:
+        if trace:
+            tracing.disable()
     window = Window(tokens=tokens, seconds=b - start,
                     flops=tokens * drv.flops_per_token,
                     peak_flops=peak_flops(drv.precision), setup_s=setup_s)
@@ -141,6 +156,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if trace:
         drv.spans.flush()
         out_run.spans = {k: list(v) for k, v in drv.spans.ms.items()}
+        out_run.program_spans, out_run.counters = program_spans(tracing)
         from perfbench.devtrace import profile_steps
         out_run.trace = profile_steps(drv.step, int(cell.traffic[
             "trace_steps"]))
@@ -175,6 +191,23 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     result["check"] = {k: {"value": numbers[k], "limit": lim}
                        for k, lim in cell.limits.items()}
     return result
+
+
+def program_spans(tracing):
+    """The program's spans drained (name -> ms of each call: by its CUDA
+    events where it ran on the card, else on the host's clock) and its
+    counters (name -> count since the reset). Spans past the program's
+    cap on records would be missing calls: then none are handed on."""
+    drained = tracing.drain()
+    ms: Dict[str, List[float]] = {}
+    if drained.dropped:
+        print(f"spans: {drained.dropped} records past the cap; the spans' "
+              "metrics are left out", file=sys.stderr)
+    else:
+        for r in drained.records:
+            ms.setdefault(r.name, []).append(
+                r.device_ms if r.device_ms is not None else 1e-6 * r.host_ns)
+    return ms, drained.counters
 
 
 def reader(kind: str, name: str):

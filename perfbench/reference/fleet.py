@@ -74,11 +74,12 @@ def follow_fleet(cfg: dict, seed: int, device: torch.device,
                 mask = torch.ones(X.shape, dtype=torch.float32,
                                   device=device)
                 with torch.enable_grad():
-                    s, _ = nll_sum(leaves, cfg, X.to(device), y.to(device),
+                    loss = nll_sum(leaves, cfg, X.to(device), y.to(device),
                                    mask, num)
-                    gs = torch.autograd.grad(s, [leaves[k] for k in names])
+                    gs = torch.autograd.grad(loss.objective(),
+                                             [leaves[k] for k in names])
                 grads[w] = torch.cat([g.reshape(-1) for g in gs])
-                losses[w] = float(s.detach())
+                losses[w] = float(loss.nll.detach())
             if it.kind == "defer":
                 for w, g in grads.items():
                     residual[w] = residual.get(w, 0) + g

@@ -65,15 +65,16 @@ def grad_sums(params: Dict[str, torch.Tensor], cfg: dict,
         if not bool(mask[sl].any()):
             continue
         with torch.enable_grad():
-            s, c = nll_sum(leaves, cfg, tokens[sl], labels[sl], mask[sl],
+            loss = nll_sum(leaves, cfg, tokens[sl], labels[sl], mask[sl],
                            num)
-            gs = torch.autograd.grad(s, [leaves[k] for k in names],
+            gs = torch.autograd.grad(loss.objective(),
+                                     [leaves[k] for k in names],
                                      allow_unused=True)
         for k, g in zip(names, gs):
             if g is not None:
                 total[k] += g
-        nll += s.detach().double()
-        count += c.double()
+        nll += loss.nll.detach().double()
+        count += loss.count.double()
     return total, nll, count
 
 

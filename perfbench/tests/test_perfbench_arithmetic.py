@@ -75,6 +75,8 @@ def test_readers():
     run = Run(trace=t, spans={"fleet.map": [100.0, 50.0, 30.0],
                               "fleet.reduce": [20.0, 20.0],
                               "optimizer": [4.0, 6.0]},
+              program_spans={"train.forward": [30.0, 34.0],
+                             "train.backward": [70.0, 80.0]},
               steps=[150.0, 150.0], peak_window_bytes=3 * 2 ** 30,
               flops_per_token=1e9, peak_flops=165e12)
     assert read("metrics", "step_gap_ms", run) == pytest.approx(20.0)
@@ -84,6 +86,8 @@ def test_readers():
     assert read("metrics", "fleet_reduce_ms", run) == pytest.approx(20.0)
     assert read("metrics", "fleet_loop_ms", run) == pytest.approx(40.0)
     assert read("metrics", "optimizer_ms", run) == pytest.approx(5.0)
+    assert read("metrics", "forward_ms", run) == pytest.approx(32.0)
+    assert read("metrics", "backward_ms", run) == pytest.approx(75.0)
     assert read("metrics", "peak_mem_gib", run) == pytest.approx(3.0)
     assert read("metrics", "step_mfu", run) == pytest.approx(
         100 * 3000 * 1e9 / 2.0 / 165e12)
@@ -91,7 +95,8 @@ def test_readers():
                  "peak_mem_gib"):
         assert read("metrics", f"{name}.fleet", run) == \
             read("metrics", name, run)
-    assert read("metrics", "step_gap_ms", Run()) is None
+    for name in ("step_gap_ms", "forward_ms", "backward_ms"):
+        assert read("metrics", name, Run()) is None
     w = Window(tokens=16384.0, seconds=0.5, flops=16384.0 * 1e6,
                peak_flops=165e12, setup_s=12.5)
     assert read("endtoend", "train_tokens_per_s", w) == 32768.0

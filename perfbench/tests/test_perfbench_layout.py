@@ -119,7 +119,7 @@ def test_no_jax_and_a_program_free_reference():
     for path in (ROOT / "perfbench" / "reference").rglob("*.py"):
         ref_mods |= set(_imports(path))
     allowed = {"torch", "__future__", "dataclasses", "typing", "math",
-               "contextlib", "perfbench"}
+               "contextlib", "importlib", "perfbench"}
     assert {m.split(".")[0] for m in ref_mods} <= allowed, ref_mods
     # what the reference imports from the benchmark imports no program
     for mod in sorted(ref_mods):
