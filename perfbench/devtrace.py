@@ -14,22 +14,36 @@ cost on the host does not pass for the program's:
    first kernel after it. The device operations that took most time
    come from here.
 2. The attribution: one more step with the host's ops and their shapes
-   recorded. Every matrix product (``aten::mm``, ``addmm``, ``bmm``,
-   ``baddbmm``) gives its count, shapes, dtypes and device time, and
-   each idle gap of this step is put down to the host op that started
-   last before it (``after <op>`` where that op had already returned).
-   These gaps are stretched by the recording; their shares are what
-   they show.
+   recorded. Every matrix product gives its least time from its shapes
+   (``products``): each ``aten::mm`` / ``addmm`` / ``bmm`` / ``baddbmm``
+   on cuBLAS, and each product of the program's hand-written kernel,
+   ``gemm_3xtf32_kernel``, launched by ``linear``'s autograd function:
+   one in its forward (``_Linear``, whose inputs are x and w) and two in
+   its backward (``_LinearBackward``, which carries its forward's
+   sequence number and thread), all three at the forward's shapes. Each
+   device operation is put down to the host op that launched it (the
+   profiler's linked correlation). The products' device time is the
+   cuBLAS ops' launches and every launch of the kernel, found by name;
+   a product counts in the bound only where its op's launches ran, so
+   the share never counts work whose time it does not hold. Each idle
+   gap of this step is put down to the host op that started last before
+   it (``after <op>`` where that op had already returned). These gaps
+   are stretched by the recording; their shares are what they show.
 """
 from __future__ import annotations
 
 import bisect
+import sys
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Tuple
 
-from perfbench.flops import ELEMENT_BYTES, MATMULS, gemm_bound_s
+from perfbench.flops import (ELEMENT_BYTES, MATMULS, gemm_mnk, linear_mnk,
+                             product_bound_s)
 
 MARKER = "spin_kernel"
+KERNEL = "gemm_3xtf32_kernel"
+LINEAR = "_Linear"
+LINEAR_BACKWARD = "_LinearBackward"
 PRECISION_OF = {"float": "float32", "c10::BFloat16": "bfloat16",
                 "c10::Half": "float16"}
 TOP = 10
@@ -45,6 +59,8 @@ class TraceData:
     step_gaps_s: List[float] = field(default_factory=list)
     gemm_bound_s: float = 0.0
     gemm_device_s: float = 0.0
+    linear_flops: float = 0.0        # the kernel's products the bound counts
+    kernel_launches: int = 0
     device_ops: List[list] = field(default_factory=list)
     idle_gaps: List[list] = field(default_factory=list)
 
@@ -99,7 +115,7 @@ def profile_steps(step: Callable[[], object], n: int) -> TraceData:
                  record_shapes=True) as prof:
         step()
         torch.cuda.synchronize()
-    attribute(prof, out)
+    attribute(list(prof.profiler.kineto_results.events()), out)
     return out
 
 
@@ -138,46 +154,104 @@ def timeline(events) -> TraceData:
     return out
 
 
-def attribute(prof, out: TraceData) -> None:
+@dataclass
+class Product:
+    op: int              # correlation id of the host op that launched it
+    kind: str            # the op's name
+    flops: float
+    bound_s: float
+
+
+def products(events) -> List[Product]:
+    """Every matrix product that the recorded host ops launched, with its
+    FLOPs and least time from the recorded shapes (module docstring)."""
+    out: List[Product] = []
+    forward: Dict[Tuple[int, int], Tuple[Tuple, str]] = {}
+    backward = []
+    for ev in events:
+        if _on_device(ev):
+            continue
+        name = ev.name()
+        if name in MATMULS:
+            mnk = gemm_mnk(name, ev.shapes())
+        elif name == LINEAR:
+            mnk = linear_mnk(ev.shapes())
+            forward[(ev.start_thread_id(), ev.sequence_nr())] = (
+                mnk, _dtype(ev))
+        elif name == LINEAR_BACKWARD:
+            backward.append(ev)
+            continue
+        else:
+            continue
+        out.append(_product(ev.correlation_id(), name, mnk, _dtype(ev)))
+    for ev in backward:
+        fwd = forward.get((ev.fwd_thread_id(), ev.sequence_nr()))
+        if fwd is not None:
+            out += 2 * [_product(ev.correlation_id(), LINEAR_BACKWARD, *fwd)]
+    return out
+
+
+def _dtype(ev) -> str:
+    return next((d for d in ev.dtypes() if d in ELEMENT_BYTES), "float")
+
+
+def _product(op: int, kind: str, mnk, dtype: str) -> Product:
+    b, M, N, K = mnk
+    return Product(op, kind, 2.0 * b * M * N * K, product_bound_s(
+        b, M, N, K, ELEMENT_BYTES[dtype], PRECISION_OF.get(dtype, "float32")))
+
+
+def attribute(events, out: TraceData) -> None:
     """The products' bound and device time, and the idle gaps by host op,
     from one step recorded with the host's ops and shapes."""
     cpu, dev = [], []
-    dtypes: Dict[Tuple[str, str], List[str]] = {}
-    for ev in prof.profiler.kineto_results.events():
+    linked: Dict[int, List[float]] = {}      # op -> [device s, launches]
+    kernel_s = 0.0
+    for ev in events:
         a = _t(ev, "start")
         b = a + _t(ev, "duration")
         name = ev.name()
-        if _on_device(ev):
-            if not getattr(ev, "is_user_annotation", lambda: False)():
-                dev.append((a, b))
+        if not _on_device(ev):
+            cpu.append((a, b, name))
             continue
-        cpu.append((a, b, name))
-        if name in MATMULS:
-            dtypes.setdefault((name, str(ev.shapes())), list(ev.dtypes()))
-    for avg in prof.key_averages(group_by_input_shape=True):
-        if avg.key not in MATMULS:
+        if getattr(ev, "is_user_annotation", lambda: False)():
             continue
-        t = _self_device_us(avg) * 1e-6
-        if t <= 0:
+        dev.append((a, b))
+        t = linked.setdefault(ev.linked_correlation_id(), [0.0, 0])
+        t[0] += (b - a) * 1e-9
+        if KERNEL in name:
+            t[1] += 1
+            kernel_s += (b - a) * 1e-9
+            out.kernel_launches += 1
+    # [FLOPs, least time, device time] of cuBLAS's products and the kernel's
+    sums = {"cublas": [0.0, 0.0, 0.0], "kernel": [0.0, 0.0, kernel_s]}
+    used: Dict[int, int] = {}
+    for p in products(events):
+        s, launches = linked.get(p.op, (0.0, 0))
+        if p.kind in MATMULS:
+            if s <= 0:
+                continue
+            part = sums["cublas"]
+            part[2] += s
+        elif used.get(p.op, 0) < launches:
+            used[p.op] = used.get(p.op, 0) + 1
+            part = sums["kernel"]
+        else:
             continue
-        dts = dtypes.get((avg.key, str(avg.input_shapes)), ["float"])
-        dt = next((d for d in dts if d in ELEMENT_BYTES), "float")
-        out.gemm_bound_s += avg.count * gemm_bound_s(
-            avg.key, avg.input_shapes, ELEMENT_BYTES[dt],
-            PRECISION_OF.get(dt, "float32"))
-        out.gemm_device_s += t
+        part[0] += p.flops
+        part[1] += p.bound_s
+    for _, bound, device in sums.values():
+        out.gemm_bound_s += bound
+        out.gemm_device_s += device
+    out.linear_flops = sums["kernel"][0]
+    print("products: " + "; ".join(
+        f"{k} {f:.6e} FLOP, least {b:.6e} s, device {d:.6e} s"
+        for k, (f, b, d) in sums.items())
+        + f"; {out.kernel_launches} launches of {KERNEL}", file=sys.stderr)
     if dev:
         busy = _union(dev)
         out.idle_gaps = idle_by_host(_gaps(busy, busy[0][0], busy[-1][1]),
                                      cpu)
-
-
-def _self_device_us(avg) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(avg, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
 
 
 def idle_by_host(gaps, cpu) -> List[list]:

@@ -56,24 +56,39 @@ def program_config(cfg: dict):
 def _dataclass(cls, values: dict):
     """``cls`` from the entries of ``values`` that name its fields, each
     nested group built as the dataclass its field's type names (``ssm``:
-    ``SSMConfig``, ``moe``: ``MoEConfig``, ...)."""
+    ``SSMConfig``, ``moe``: ``MoEConfig``, ...) and each JSON list of a
+    tuple-typed field as a tuple. A field ``values`` does not name keeps
+    its default."""
     types = typing.get_type_hints(cls)
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name not in values:
             continue
-        v = values[f.name]
-        sub = _dataclass_type(types[f.name])
-        kw[f.name] = _dataclass(sub, v) if sub and isinstance(v, dict) else v
+        v, tp = values[f.name], types[f.name]
+        sub = dataclass_type(tp)
+        if sub and isinstance(v, dict):
+            v = _dataclass(sub, v)
+        elif isinstance(v, list) and _is_tuple(tp):
+            v = _tuple(v)
+        kw[f.name] = v
     return cls(**kw)
 
 
-def _dataclass_type(tp):
+def dataclass_type(tp):
     """The dataclass a field's type names, itself or inside ``Optional``."""
     for t in (tp, *typing.get_args(tp)):
         if dataclasses.is_dataclass(t):
             return t
     return None
+
+
+def _is_tuple(tp) -> bool:
+    return any(typing.get_origin(t) is tuple
+               for t in (tp, *typing.get_args(tp)))
+
+
+def _tuple(v):
+    return tuple(_tuple(x) for x in v) if isinstance(v, list) else v
 
 
 class Spans:

@@ -1,5 +1,6 @@
-"""The yardstick's arithmetic: a model's FLOPs a trained token, a GEMM's
-least time, and the chip's peaks (``peaks.json``).
+"""The yardstick's arithmetic: a model's FLOPs a trained token, a matrix
+product's least time (an ``aten`` product's or the program's ``linear``'s,
+from recorded shapes), and the chip's peaks (``peaks.json``).
 
 A trained token costs 6 x the matrix parameters it passes through (two
 FLOPs a multiply-add, forward and the two products of the backward pass;
@@ -13,6 +14,7 @@ require."""
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
 from typing import Sequence
 
@@ -58,12 +60,21 @@ def gemm_mnk(op: str, shapes: Sequence[Sequence[int]]):
     raise ValueError(op)
 
 
-def gemm_bound_s(op: str, shapes, element_bytes: int,
-                 precision: str) -> float:
-    """The least time of one product: the larger of 2 M N K over the
-    peak of ``precision`` and its bytes (each input read once, the output
-    written once) over HBM's rate."""
-    b, M, N, K = gemm_mnk(op, shapes)
+def linear_mnk(shapes: Sequence[Sequence[int]]):
+    """(1, M, N, K) of the program's ``linear(x, w)`` from its forward's
+    recorded input shapes, x (..., K) and w (K, N): M is x's rows. Its
+    backward's two products, dX = dY w^T and dW = x^T dY, each take the
+    same 2 M N K and touch the same three matrices (x or dX, w or dW, y
+    or dY), so each has the forward's least time."""
+    x, (_, N) = shapes[0], shapes[1]
+    return 1, math.prod(x[:-1]), N, x[-1]
+
+
+def product_bound_s(b: int, M: int, N: int, K: int, element_bytes: int,
+                    precision: str) -> float:
+    """The least time of ``b`` M x K by K x N products: the larger of
+    2 b M N K over the peak of ``precision`` and their bytes (each input
+    read once, the output written once) over HBM's rate."""
     flops = 2.0 * b * M * N * K
     nbytes = float(element_bytes) * b * (M * K + K * N + M * N)
     return max(flops / peak_flops(precision),

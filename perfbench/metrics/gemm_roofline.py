@@ -1,8 +1,13 @@
-"""The matrix products' share of their roofline: the least time of every
-traced ``mm`` / ``addmm`` / ``bmm`` / ``baddbmm`` (the larger of 2 M N K
-over the peak at its dtype and its bytes over HBM's rate, from the
-recorded shapes; ``flops.gemm_bound_s``) over those products' device
-time."""
+"""The matrix products' share of their roofline over one profiled step:
+the least time of every product the step launched, over those launches'
+device time (``devtrace.attribute``). Counted: each cuBLAS ``mm`` /
+``addmm`` / ``bmm`` / ``baddbmm`` (attention's scores, the SSD's einsums)
+and each launch of the program's hand-written ``gemm_3xtf32_kernel``,
+found by name, three a ``linear`` (its forward, and dX and dW in its
+backward, each at the forward's M, N, K; remat's recomputed forward
+too). A product's least time is the larger of 2 M N K over the peak at
+its dtype (float32: 165 TFLOP/s, the 3xTF32 rate) and its bytes over
+HBM's rate (``flops.product_bound_s``)."""
 
 
 def read(run):

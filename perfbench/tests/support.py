@@ -1,7 +1,8 @@
 """Shared by the benchmark's CPU tests: the repository root on the path,
 the cells of ``BENCHMARK.json``, and a cell cut to the CPU (the
-configuration's ``.reduced()`` sizes, and the traffic's sizes from its
-driver's test module, ``perfbench/tests/drivers/<driver>.py``)."""
+``.reduced()`` sizes of the configuration its file gives the program,
+and the traffic's sizes from its driver's test module,
+``perfbench/tests/drivers/<driver>.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,10 +32,13 @@ def driver_tests(name: str):
 
 
 def small_cell(name: str) -> harness.Cell:
-    from repro_torch.configs import get_config
+    """Cell ``name`` at the CPU's sizes: the ``.reduced()`` sizes of the
+    configuration the program runs from the cell's file (so a cut the
+    file declares, such as the experts held, runs here too)."""
+    from perfbench.drivers import program_config
 
     cell = harness.load_cell(ROOT, name)
-    cfg = dataclasses.asdict(get_config(cell.config["name"]).reduced())
+    cfg = dataclasses.asdict(program_config(cell.config).reduced())
     cell.config = {**cell.config, **cfg}
     cell.traffic = {**cell.traffic, **driver_tests(name).SMALL_TRAFFIC}
     return cell

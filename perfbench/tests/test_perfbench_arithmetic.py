@@ -38,14 +38,18 @@ def test_mamba2_780m_counts():
 
 def test_gemm_bound_hand_counts():
     peak, hbm = 165e12, 3.35e12
+
+    def bound(op, shapes):
+        return flops.product_bound_s(*flops.gemm_mnk(op, shapes), 4,
+                                     "float32")
     # compute-bound: 4096^3
-    assert flops.gemm_bound_s("aten::mm", [[4096, 4096], [4096, 4096]], 4,
-                              "float32") == pytest.approx(
+    assert bound("aten::mm", [[4096, 4096], [4096, 4096]]) == pytest.approx(
         2 * 4096 ** 3 / peak)
     # bytes-bound: a thin product
-    assert flops.gemm_bound_s("aten::addmm", [[64], [8, 4096], [4096, 64],
-                                              [], []], 4, "float32") == \
+    assert bound("aten::addmm", [[64], [8, 4096], [4096, 64], [], []]) == \
         pytest.approx(4 * (8 * 4096 + 4096 * 64 + 8 * 64) / hbm)
+    # the program's linear: x (2, 8, 16) @ w (16, 12)
+    assert flops.linear_mnk([[2, 8, 16], [16, 12]]) == (1, 16, 12, 16)
     assert flops.gemm_mnk("aten::bmm", [[3, 5, 7], [3, 7, 11]]) == \
         (3, 5, 11, 7)
     assert flops.peak_flops("bfloat16") == 989e12

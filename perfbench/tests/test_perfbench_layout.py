@@ -5,7 +5,6 @@ the JAX package (nor the reference the program)."""
 from __future__ import annotations
 
 import ast
-import dataclasses
 import importlib
 import json
 import os
@@ -75,30 +74,18 @@ def test_cell_resolves_to_its_files(name):
 
 
 def test_configuration_files():
-    from repro_torch.configs import get_config
-    from repro_torch.models.transformer import param_shapes
-
-    from perfbench.reference.models import layout
+    """Each configuration file is what the program runs: ``differences``
+    (``perfbench/config_check.py``) finds nothing between the program's
+    configuration from the file and its registered one, cut as ``reduced``
+    declares, nor between the program's parameter tree and the
+    reference's."""
+    from perfbench.config_check import differences
 
     files = [c["file"] for c in BENCH["configs"]]
     assert len(files) == len(set(files))
     for entry in BENCH["configs"]:
         cfg = json.loads((ROOT / entry["file"]).read_text())
-        assert cfg["name"] == entry["name"]
-        ours = dataclasses.asdict(get_config(entry["name"]))
-        for k, v in ours.items():
-            if k not in entry["reduced"]:
-                assert cfg[k] == v, k
-        assert set(entry["reduced"]) <= set(cfg["changed"])
-        shapes = param_shapes(get_config(entry["name"]))
-
-        def flat(t, pre=""):
-            for k, v in t.items():
-                if isinstance(v, dict):
-                    yield from flat(v, f"{pre}{k}/")
-                else:
-                    yield f"{pre}{k}", tuple(v)
-        assert dict(flat(shapes)) == {p: tuple(s) for p, s, _ in layout(cfg)}
+        assert differences(entry, cfg) == [], entry["name"]
 
 
 def _imports(path):
