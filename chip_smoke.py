@@ -230,7 +230,9 @@ result):
    single-device one per leaf (f32's rounding of the params hides small
    updates, so the 15-step update's difference is printed, not gated);
    each rank's stored bytes and wire bytes
-   per step equal ``run_dryrun``'s; no kernel launched; ms per step, the
+   per step equal ``run_dryrun``'s; no kernel launched but the model
+   step's (``model_step_gate``: ``gemm_3xtf32``, the training attention,
+   every attention call fused); ms per step, the
    collectives' share (the gathers' and the activation all-reduces' host
    ms apart), peak memory per rank. Since slice 14 the step splits its
    compute over ``model`` (heads, FF, vocab; ``tensor_parallel``) and
@@ -248,7 +250,7 @@ result):
    ms per step with the gathers' and activation all-reduces' host ms,
    peak memory per rank; reduced: losses and aux within 1e-5 of both
    single-device engines, the gathered params within 1e-5 (per leaf
-   ``||a - b|| / ||b||``); no kernel launched;
+   ``||a - b|| / ||b||``); no kernel launched but the model step's;
 9q. mesh-ssm (slice 15) — first, in this process, the compute plan of
    ``mamba2-780m`` at full width and depth (48 layers, f32) on (data 2,
    model 2) must split ``out_proj`` and ``gate_norm`` of every Mamba2
@@ -268,7 +270,7 @@ result):
    step at full depth with the
    gathers', the partial leaves' gradient all-reduces', the activation
    all-reduces' and the norms' sums of squares' host ms apart, peak
-   memory per rank; no kernel launched;
+   memory per rank; no kernel launched but the model step's;
 9o. mesh-nccl — a NCCL world of ``torch.cuda.device_count()`` ranks, one
    card each, 10 of those sgd steps: within 1e-6 of the single-device
    engine, and whether bit for bit;
@@ -314,6 +316,19 @@ result):
    from a CUDA graph beside ``torch.matmul`` (TF32 off), the plain
    version and its 3xTF32 bound, every one held to 4x cuBLAS float32's
    error against float64 (or 2e-6);
+11d. attn-train — the training attention (``scripts/time_attn_train.py``):
+   ``kernels/flash_attention/train.py``'s forward (with the log-sum-exp)
+   and backward kernels at the LM's training shape (16 x 1024, 12 / 4
+   heads of 64, causal), the fleet's 16-token rows, a sliding window, a
+   non-causal ragged case and a window without the causal mask: O, dQ,
+   dK, dV against a float64 softmax within 2e-5 of the largest exact
+   value (the kernel API's float32 tolerance; the plain path's error,
+   autograd through ``grouped_attend`` in float32, printed beside), two
+   runs bit-equal; forward and backward µs beside the bound, the plain path
+   and SDPA's forward + backward; the host's µs a call at the fleet's
+   shape; over one LM step at full width, 12 fused calls, 0 plain, 12
+   forward and 24 backward launches (a side check: the ``kernels`` line
+   reads the counts of slice 12's ``[mesh-train]`` run);
 12. a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -364,6 +379,7 @@ from repro_torch.core.config import DeadlineConfig  # noqa: E402
 import repro_torch.kernels as api  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import train as fa_train  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
@@ -374,6 +390,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.topk_compress.ref import (  # noqa: E402
     block_topk_flat_ref, fused_block_topk_batched_ref)
 from repro_torch.core.mesh_engine import ElasticMeshSGD  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.configs.shapes import InputShape  # noqa: E402
 import repro_torch.distributed.world as dist_world  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp_mod  # noqa: E402
@@ -399,6 +416,11 @@ from repro_torch.serving import (PagingConfig, ServeRequest,  # noqa: E402
                                  SpeculativeConfig, generate_requests)
 
 ARCH = "mlitb-lm-100m"
+# the training attention's counters: forward launches, backward launches,
+# fused calls, plain calls (``kernels/flash_attention/train.py``,
+# ``models/attention``)
+TRAIN_ATTENTION = (fa_ops.COUNTER.name, fa_train.BACKWARD.name,
+                   attn_mod.FUSED_CALLS.name, attn_mod.PLAIN_CALLS.name)
 # the served engine: paged pool, 16-token pages, 16 slots of 512 tokens
 MAX_BATCH, MAX_SEQ, PAGE = 16, 512, 16
 N_REQUESTS = 32
@@ -1874,7 +1896,8 @@ def phase_train_serve(card: str) -> dict:
     launches = fd_ops.COUNTER.count
     other = {k: c.count for k, c in runtime.COUNTERS.items()
              if c.count and k not in (fd_ops.COUNTER.name,
-                                      gemm_ops.LAUNCHES.name)}
+                                      gemm_ops.LAUNCHES.name)
+             + TRAIN_ATTENTION[:3]}
     peak = torch.cuda.max_memory_allocated()
     st, eng = out["stats"], out["engine"]
     losses = check_reduce_losses(out["logs"], f"[train-serve] {ARCH}")
@@ -3497,6 +3520,26 @@ def family_steps(name: str, device: str) -> tuple:
     return ms, st["params"]
 
 
+def model_step_gate(launches: dict, where: str, *, lm: bool) -> None:
+    """A model step's launch counts: ``gemm_3xtf32``'s products and the
+    training attention run a hand-written kernel and nothing else does;
+    one forward launch a fused attention call and two backward launches
+    (every call is differentiated once: no remat, no evaluation forward).
+    ``lm``: the LM at full width in float32, so products launched and
+    every attention call fused, none plain."""
+    fwd, bwd, fused, plain = (launches.get(n, 0) for n in TRAIN_ATTENTION)
+    other = {k: v for k, v in launches.items()
+             if v and k not in (gemm_ops.LAUNCHES.name,) + TRAIN_ATTENTION}
+    if other or fwd != fused or bwd != 2 * fused or lm and (
+            not launches.get(gemm_ops.LAUNCHES.name) or not fused or plain):
+        raise AssertionError(
+            f"{where} launches {launches}: want gemm_3xtf32's and the "
+            f"training attention's alone, forward launches = fused calls, "
+            f"backward launches = 2 x fused calls"
+            + (", products launched and every attention call fused"
+               if lm else ""))
+
+
 def phase_mesh_train(card: str) -> dict:
     """``launch.train`` without ``--simulate`` at full width: the gated
     300-step churned run, its closure reloaded and served, the default lr
@@ -3540,11 +3583,11 @@ def phase_mesh_train(card: str) -> dict:
     if not last < first:
         raise AssertionError(f"[mesh-train] loss did not fall: first 20 "
                              f"mean {first}, last 20 {last}")
-    # the model's products, and nothing else, run a hand-written kernel
-    if not launches.get(gemm_ops.LAUNCHES.name) or any(
-            v for k, v in launches.items() if k != gemm_ops.LAUNCHES.name):
-        raise AssertionError(f"[mesh-train] the training path's launches "
-                             f"{launches}: want gemm_3xtf32's alone")
+    fwd, bwd, fused, plain = (launches.get(n, 0) for n in TRAIN_ATTENTION)
+    print(f"[mesh-train] training attention over the run: {fused} fused "
+          f"calls, {plain} plain; {fwd} forward and {bwd} backward "
+          f"launches | {card}")
+    model_step_gate(launches, "[mesh-train]", lm=True)
     # the closure, reloaded, serves what the in-memory params serve
     clo = ResearchClosure.load(path)
     Path(path).unlink()
@@ -3850,9 +3893,9 @@ def mesh_moe_gates(card: str, runs: list, single: dict, work: Path
     reduced runs' gathered params under ``work``."""
     if not dist_world.same_everywhere(runs):
         raise AssertionError("[mesh-moe] ranks report different metrics")
-    launched = [r["launches"] for m in runs for r in m["runs"]]
-    if any(any(v.values()) for v in launched):
-        raise AssertionError(f"[mesh-moe] kernels launched: {launched}")
+    for m in runs:
+        for r in m["runs"]:
+            model_step_gate(r["launches"], "[mesh-moe]", lm=False)
     full = [m["runs"][0] for m in runs]
     hist = full[0]["history"]
     dr = single["dryrun"]
@@ -3902,7 +3945,7 @@ def mesh_moe_gates(card: str, runs: list, single: dict, work: Path
           f"single-device engine's (aux {hist[-1]['aux_loss']:.4f}); "
           f"stored {full[0]['stored_bytes']} and wire "
           f"{full[0]['wire_bytes'][0]} bytes per rank = run_dryrun's; no "
-          f"kernel launched | {card}")
+          f"kernel launched but the model step's | {card}")
     print(f"[mesh-moe] ms per step (host clock, a sync before each "
           f"collective, steps after the first, all ranks): "
           f"{spread([x[0] for x in steps])}; the collectives' share "
@@ -4011,9 +4054,9 @@ def mesh_ssm_gates(card: str, runs: list, single: dict, work: Path
     gated runs' gathered params under ``work``."""
     if not dist_world.same_everywhere(runs):
         raise AssertionError("[mesh-ssm] ranks report different metrics")
-    launched = [r["launches"] for m in runs for r in m["runs"]]
-    if any(any(v.values()) for v in launched):
-        raise AssertionError(f"[mesh-ssm] kernels launched: {launched}")
+    for m in runs:
+        for r in m["runs"]:
+            model_step_gate(r["launches"], "[mesh-ssm]", lm=False)
     cfg, gated = single["cfg"], single["gated_cfg"]
     full = [m["runs"][0] for m in runs]
     for j, c in ((0, cfg), (1, gated)):
@@ -4084,7 +4127,7 @@ def mesh_ssm_gates(card: str, runs: list, single: dict, work: Path
           f"{', '.join(f'{x:.2e}' for x in single['noise_floor'][1:])}); "
           f"stored {full[0]['stored_bytes']} and wire "
           f"{full[0]['wire_bytes'][0]} bytes per rank = run_dryrun's; no "
-          f"kernel launched | {card}")
+          f"kernel launched but the model step's | {card}")
     fl_abs, fl_rel = single["gated_floor"]
     print(f"[mesh-ssm] depth cut to {gated.n_layers} layers, the same "
           f"schedule: losses {g_rel:.2e} relative, gathered params "
@@ -4245,9 +4288,9 @@ def phase_dist(card: str) -> dict:
     hist = sgd_runs[0]["history"]
     if [h["n_live"] for h in hist] != MESH_DIST_LIVE:
         raise AssertionError(f"[mesh-dist] live {[h['n_live'] for h in hist]}")
-    launched = [r["launches"] for m in mesh for r in m["runs"]]
-    if any(any(v.values()) for v in launched):
-        raise AssertionError(f"[mesh-dist] kernels launched: {launched}")
+    for m in mesh:
+        for r in m["runs"]:
+            model_step_gate(r["launches"], "[mesh-dist]", lm=True)
     shape = InputShape("mesh-dist", MESH_SEQ, MESH_BATCH, "train")
     dmesh = Mesh(*MESH_DIST)
     for runs, opt in ((sgd_runs, "sgd"), (ada_runs, "adagrad")):
@@ -4307,7 +4350,7 @@ def phase_dist(card: str) -> dict:
           f"loss {step_loss:.2e} (bound {MESH_DIST_TOL:g}); stored bytes "
           f"{sgd_runs[0]['stored_bytes']} and wire bytes per step "
           f"{sgd_runs[0]['wire_bytes'][0]} per rank = run_dryrun's; no "
-          f"kernel launched | {card}")
+          f"kernel launched but the model step's | {card}")
     print(f"[mesh-dist] ms per step (host clock ending in the metrics' host "
           f"copy, steps after the first, all ranks): AdaGrad lr 0.003 "
           f"{spread(ada_ms)}; sgd with a sync before each collective "
@@ -5066,13 +5109,33 @@ def phase_gemm(card: str) -> dict:
     return {"checks": checks, "rows": rows}
 
 
+def phase_attn_train(card: str) -> dict:
+    """[attn-train]: the training attention (``scripts/time_attn_train.
+    py``): the fused function's forward and backward against a float64
+    softmax beside the plain path, two runs bit-equal, kernel times beside
+    the bound, the plain path and SDPA, the host's cost at the fleet's
+    shape, and the counters over one LM step."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    ta = importlib.import_module("time_attn_train")
+    t0 = time.perf_counter()
+    out = {"checks": [ta.check_case(c) for c in ta.CASES],
+           "timing": [ta.time_case(c, 20 if c != "fleet" else 200)
+                      for c in ta.CASES],
+           "host": ta.host_cost(), "lm_step": ta.lm_step_counters()}
+    free_card()
+    print(f"[attn-train] {len(out['checks'])} cases in "
+          f"{time.perf_counter() - t0:.1f} s | {card}")
+    return out
+
+
 def build_all() -> dict:
     """Build every kernel from this checkout, one nvcc per source, all
     started together."""
     libs = {"flash_decode": fd_ops.library, "fused_compress": tk_ops.library,
             "block_topk": tk_ops.block_topk_library,
             "flash_attention": fa_ops.library, "ssd_scan": ssd_ops.library,
-            "gemm_3xtf32": gemm_ops.library}
+            "gemm_3xtf32": gemm_ops.library,
+            "flash_attention_train": fa_train.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(libs)) as ex:
         futs = {name: ex.submit(fn) for name, fn in libs.items()}
@@ -5149,6 +5212,8 @@ def main() -> int:
     d2 = phase_d2(card)
     d2["seconds"] = time.perf_counter() - t15
     gemm = phase_gemm(card)
+    attn_train = phase_attn_train(card)
+    attn_lm = next(r for r in attn_train["timing"] if r["case"] == "lm")
     gemm_lm = next(r for r in gemm["rows"]
                    if (r["cell"], r["product"]) == ("lm", "q|o.fwd"))
     del main_api
@@ -5223,7 +5288,21 @@ def main() -> int:
          "max_row_rel_err_bf16": fa["max_row_rel_err_bf16"],
          "row_rel_tol_bf16": ROW_TOL_BF16, "ms": fa_t["ms"],
          "plain_ms": fa_t["plain_ms"], "bound_ms": fa_t["bound_ms"],
-         "bound_by": fa_t["bound_by"], "library_ms": fa_t["library_ms"]},
+         "bound_by": fa_t["bound_by"], "library_ms": fa_t["library_ms"],
+         "train": {"launches_mesh_train": {
+                       n: mesh["launches"].get(n, 0)
+                       for n in TRAIN_ATTENTION},
+                   "launches_lm_step_side_check": attn_train["lm_step"],
+                   "forward_ms": attn_lm["forward_us"] * 1e-3,
+                   "backward_ms": attn_lm["backward_us"] * 1e-3,
+                   "bound_ms": (attn_lm["forward"]["bound_us"]
+                                + attn_lm["backward"]["bound_us"]) * 1e-3,
+                   "plain_ms": attn_lm["plain_us"] * 1e-3,
+                   "library_ms": None if attn_lm["library_us"] is None
+                   else attn_lm["library_us"] * 1e-3,
+                   "max_rel_err": max(r[n]["rel_err"]
+                                      for r in attn_train["checks"]
+                                      for n in ("o", "dq", "dk", "dv"))}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:25",
@@ -5271,6 +5350,7 @@ def main() -> int:
          "api_launches": launches,
          "flash_attention": fa,
          "ssd_scan": ssd, "block_topk": bt, "d2": d2, "gemm": gemm,
+         "attn_train": attn_train,
          "total_s": time.perf_counter() - t_start},
         indent=1, default=str))
     slice8 = (spec["seconds"], oneshot["seconds"],

@@ -62,16 +62,17 @@ def find_nvcc() -> str:
 
 
 def build(name: str, sources: Sequence[Path],
-          configure: Optional[Callable[[ctypes.CDLL], None]] = None
-          ) -> BuiltLibrary:
+          configure: Optional[Callable[[ctypes.CDLL], None]] = None,
+          defines: Sequence[str] = ()) -> BuiltLibrary:
     """Compile ``sources`` into ``build/torch_ext/<name>-<hash>.so`` (once
     per content) and load it; ``configure`` declares the C functions'
-    ``argtypes``/``restype`` once, at load. Raises ``RuntimeError`` with
-    nvcc's output when the build fails."""
+    ``argtypes``/``restype`` once, at load; ``defines`` are preprocessor
+    macros (``-D``), so one source can build a smaller library. Raises
+    ``RuntimeError`` with nvcc's output when the build fails."""
     if name in _LOADED:
         return _LOADED[name]
     sources = [Path(s) for s in sources]
-    flags: List[str] = ARCH_FLAGS + NVCC_FLAGS
+    flags: List[str] = ARCH_FLAGS + NVCC_FLAGS + [f"-D{d}" for d in defines]
     h = hashlib.sha256(" ".join(flags).encode())
     for s in sources:
         h.update(s.read_bytes())

@@ -11,6 +11,11 @@
 //   k, v (B, K, T, D)   the same type
 //   out  (B, H, S, D)   q's type; accumulation is float32
 //
+// The training entry points (float32 only; the backward pass is at the
+// end of this file) read the model's (B, S, H, D) / (B, T, K, D) layouts
+// in place by their strides, and the forward also writes each query row's
+// log-sum-exp.
+//
 // Semantics kept from the TPU kernel: scale D^-0.5; masks by absolute
 // positions, both aligned at 0 (key t is valid for query s when t <= s
 // under `causal` and t > s - window under `window`); online softmax with
@@ -78,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -86,6 +93,13 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;       // query rows per CTA
 constexpr unsigned kFull = 0xffffffffu;
+
+// Element strides of a 4-D operand: batch row, head, sequence position
+// (the last axis is contiguous). The public API's (B, H, S, D) tensors and
+// the model's (B, S, H, D) activations are both read in place.
+struct Layout {
+  long long b, h, s;
+};
 
 template <typename T, int D>
 struct Cfg {
@@ -128,19 +142,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [0, nrows) of a (rows, D) matrix into shared memory with row
-// stride LD; rows >= valid are zero-filled
-template <typename T, int D>
+// rows [0, nrows) of a matrix whose rows lie `ld` elements apart into
+// shared memory with row stride LD; rows >= valid are zero-filled
+template <typename T, int D, int NTH = kThreads>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int nrows,
-                                          int valid) {
+                                          int valid, long long ld) {
   constexpr int PPR = D * (int)sizeof(T) / 16;   // 16-byte pieces per row
   constexpr int EPP = 16 / (int)sizeof(T);       // elements per piece
-  for (int e = threadIdx.x; e < nrows * PPR; e += kThreads) {
+  for (int e = threadIdx.x; e < nrows * PPR; e += NTH) {
     const int r = e / PPR;
     const int c = (e - r * PPR) * EPP;
     const bool ok = r < valid;
     cp_async16(dst + r * Cfg<T, D>::LD + c,
-               ok ? src + (size_t)r * D + c : src, ok ? 16 : 0);
+               ok ? src + r * ld + c : src, ok ? 16 : 0);
   }
 }
 
@@ -346,11 +360,11 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
 }
 // rows [0, nrows) of a float32 tile (row stride D + 4) as TF32 big and
 // small planes with the same layout
-template <int D>
+template <int D, int NTH = kThreads>
 __device__ __forceinline__ void split_rows(uint32_t* big, uint32_t* small,
                                            const float* src, int nrows) {
   constexpr int LD = D + 4, V4 = D / 4;
-  for (int e = threadIdx.x; e < nrows * V4; e += kThreads) {
+  for (int e = threadIdx.x; e < nrows * V4; e += NTH) {
     const int r = e / V4;
     const int c = (e - r * V4) * 4;
     const float4 x = *reinterpret_cast<const float4*>(src + r * LD + c);
@@ -462,12 +476,18 @@ __device__ __forceinline__ void rescale(float (&o)[NO][4],
   }
 }
 
-// out rows r0 + g (+ 8) = O / max(l, 1e-30), l quad-summed first
+// out rows r0 + g (+ 8) = O / max(l, 1e-30), l quad-summed first; rows
+// lie `ld` elements apart from `out`. With `lse` (float32 only, natural
+// exponentials), also each row's log-sum-exp of the scaled scores, m scale
+// + log l (+inf for a row with no valid key, so a recomputed P is 0).
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, size_t row0,
+__device__ __forceinline__ void store_rows(T* __restrict__ out, long long ld,
                                            float (&o)[D / 8][4],
                                            float (&l)[2], int r0,
-                                           int g, int t4, int S) {
+                                           int g, int t4, int S,
+                                           float* __restrict__ lse = nullptr,
+                                           const float* m = nullptr,
+                                           float scale = 0.f) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float lt = l[hh];
@@ -476,19 +496,25 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, size_t row0,
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     const int qp = r0 + g + 8 * hh;
     if (qp >= S) continue;
-    T* orow = out + (row0 + qp) * D + 2 * t4;
+    if (lse != nullptr && t4 == 0)
+      lse[qp] = lt > 0.f ? fmaf(m[hh], scale, logf(lt))
+                          : __int_as_float(0x7f800000);
+    T* orow = out + qp * ld + 2 * t4;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       store2(orow + n * 8, o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
   }
 }
 
+// `out` shares q's layout `lq`, v shares k's `lkv`; `lse` (float32 only,
+// may be null) is (B, H, S)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int K, int S, int T_, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H, int K, int S, int T_,
+                       int causal, int window, float scale, Layout lq,
+                       Layout lkv) {
   using C = Cfg<T, D>;
   constexpr int BK = C::BK, LD = C::LD, NT = C::NT, NO = C::NO, KQ = C::KQ;
   constexpr bool kBf16 = C::kBf16;
@@ -506,9 +532,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const T* qb = q + ((size_t)(b * H + h) * S + q0) * D;
-  const T* kb = k + (size_t)(b * K + kh) * T_ * D;
-  const T* vb = v + (size_t)(b * K + kh) * T_ * D;
+  const long long qoff = b * lq.b + h * lq.h;
+  const T* qb = q + qoff + q0 * lq.s;
+  const T* kb = k + b * lkv.b + kh * lkv.h;
+  const T* vb = v + b * lkv.b + kh * lkv.h;
 
   // key tiles that hold a key some query row of this tile may see
   const int q_last = min(S, q0 + kBQ) - 1;
@@ -520,10 +547,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_kv = [&](int it) {
     const int k0 = lo + it * BK;
     T* Ks = KV + (it & 1) * 2 * BK * LD;
-    load_rows<T, D>(Ks, kb + (size_t)k0 * D, BK, T_ - k0);
-    load_rows<T, D>(Ks + BK * LD, vb + (size_t)k0 * D, BK, T_ - k0);
+    load_rows<T, D>(Ks, kb + k0 * lkv.s, BK, T_ - k0, lkv.s);
+    load_rows<T, D>(Ks + BK * LD, vb + k0 * lkv.s, BK, T_ - k0, lkv.s);
   };
-  load_rows<T, D>(Qs, qb, kBQ, S - q0);
+  load_rows<T, D>(Qs, qb, kBQ, S - q0, lq.s);
   cp_async_commit();
   if (ntiles > 0) load_kv(0);
   cp_async_commit();
@@ -658,6 +685,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     } else {
       const float* Vf = reinterpret_cast<const float*>(Vs);
+      // with the planes (D <= 64), the tile's P V goes to zeroed
+      // registers first and is added to O in IEEE float32: the tensor
+      // cores' own additions do not round to nearest, and over many key
+      // tiles their error would grow with the length
+      float pv[C::kPreSplit ? NO : 1][4];
+      if constexpr (C::kPreSplit) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+      }
 #pragma unroll
       for (int kc = 0; kc < BK / 8; ++kc) {
         // A's k index t holds key 2t, k index t + 4 key 2t + 1 (the
@@ -671,7 +709,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const uint32_t* vb = Pl + 2 * BK * LD + i + n * 8;
             const uint32_t* vs = Pl + 3 * BK * LD + i + n * 8;
             const Split bb[2] = {{vb[0], vs[0]}, {vb[LD], vs[LD]}};
-            mma_3xtf32(o[n], a, bb);
+            mma_3xtf32(pv[n], a, bb);
           } else {
             const Split bb[2] = {split(Vf[i + n * 8]),
                                  split(Vf[i + LD + n * 8])};
@@ -679,11 +717,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
       }
+      if constexpr (C::kPreSplit) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
+      }
     }
   }
   cp_async_wait<0>();
 
-  store_rows<T, D>(out, (size_t)(b * H + h) * S, o, l, r0, g, t4, S);
+  store_rows<T, D>(out + qoff, lq.s, o, l, r0, g, t4, S,
+                   lse == nullptr ? nullptr : lse + (size_t)(b * H + h) * S,
+                   m, scale);
 }
 
 // ---- bf16 on wgmma, warp-specialized with TMA (D = 64, 128) ---------------
@@ -891,9 +937,520 @@ flash_attention_tma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     mbar_arrive(empty(st));    // this thread is done with the stage
   }
-  store_rows<T, D>(out, (size_t)(b * H + h) * S, o, l, r0, g, t4, S);
+  store_rows<T, D>(out + (size_t)(b * H + h) * S * D, D, o, l, r0, g, t4,
+                   S);
 }
 
+// ---- training: the backward pass (float32, 3xTF32 on mma.sync) -----------
+// The forward's float32 route (mma.sync) also writes each query row's
+// log-sum-exp L of the scaled scores. The backward recomputes P = exp(scale
+// S - L) and dS = P (dP - Delta) tile by tile in registers, so no S x T
+// tensor reaches device memory; Delta = rowsum(dO O), dQ = scale dS K,
+// dK = scale dS^T Q, dV = P^T dO. Two kernels, in this order:
+//
+//   dQ:    one CTA of 4 warps per (64-query tile, head, batch row), 16 rows
+//          a warp, as the forward. First Delta of its rows (written out for
+//          the next kernel); then Q and dO, split into TF32 halves once and
+//          held in registers, meet the key tiles up to the diagonal through
+//          the forward's 2-stage cp.async ring, each K/V tile split into
+//          TF32 planes in shared memory once: S = Q K^T and dP = dO V^T read
+//          them K-major, dQ += dS K reads K's planes again row-major.
+//   dK/dV: one CTA of 8 warps per (64-key tile, KV head, batch row); warp
+//          w owns keys 16 (w % 4) .. + 15 and one half (32 queries) of every
+//          query tile. K and V are split into planes once; the G query
+//          heads of the group and their query tiles from the diagonal on
+//          stream through a cp.async buffer, each Q/dO tile split into
+//          planes once and read by both products that use it (S^T = K Q^T
+//          and dK += dS^T Q; dP^T = V dO^T and dV += P^T dO). dK and dV stay
+//          in registers; at the end the two query halves' sums meet in
+//          shared memory and are added in a fixed order.
+//
+// No float atomics: every sum has one order, so a seed repeats bit for bit.
+// Five products a (query, key) pair in dK/dV and three in dQ: S and dP are
+// computed twice, the price of a dQ without atomics. What bounds it: the
+// mma.sync rate (three TF32 products per product) with the shared-memory
+// fragment loads beside it; the streamed tiles are split once per CTA, not
+// per warp. wgmma is left out: its B operand is one swizzled plane per
+// product, and the transposed reads (P^T dO, dS^T Q, dS K) would each need
+// a second, transposed copy of the planes.
+constexpr int kBwdThreads = 256;           // dK/dV: 8 warps
+constexpr int kBwdKeys = 64;               // dK/dV: keys per CTA
+constexpr int kBwdQ = 64;                  // dK/dV: queries per tile
+constexpr int kDqBK = 32;                  // dQ: keys per tile
+
+template <int D>
+struct DqCfg {
+  static constexpr int LD = D + 4;
+  // 2 stages of (K, V), then K big, K small, V big, V small; the Q, dO and
+  // O rows staged at the start share the space
+  static constexpr size_t kSmem = sizeof(float) * 8 * kDqBK * LD;
+  static_assert(3 * kBQ <= 8 * kDqBK, "Q, dO and O must fit in the ring");
+};
+
+template <int D>
+struct DkvCfg {
+  static constexpr int LD = D + 4;
+  static constexpr int kPlane = 64 * LD;   // one 64-row plane, in words
+  // planes K, V, Q, dO (big, small each), raw Q and dO, then L and Delta
+  static constexpr size_t kSmem =
+      sizeof(float) * (10 * (size_t)kPlane + 2 * kBwdQ);
+  static_assert(kBwdKeys == 64 && kBwdQ == 64, "64-row planes");
+};
+
+// A fragment (the 16 rows at `rows`, k-step kc) of a float32 tile, split
+__device__ __forceinline__ void frag_split(Split (&a)[4], const float* rows,
+                                           int LD, int kc, int g, int t4) {
+  const float* p = rows + kc * 8 + t4;
+  a[0] = split(p[g * LD]);
+  a[1] = split(p[(g + 8) * LD]);
+  a[2] = split(p[g * LD + 4]);
+  a[3] = split(p[(g + 8) * LD + 4]);
+}
+// A fragment from TF32 planes (big, small); i0 indexes (row g, column t4)
+__device__ __forceinline__ void frag_planes(Split (&a)[4], const uint32_t* big,
+                                            const uint32_t* small, int i0,
+                                            int LD) {
+  a[0] = {big[i0], small[i0]};
+  a[1] = {big[i0 + 8 * LD], small[i0 + 8 * LD]};
+  a[2] = {big[i0 + 4], small[i0 + 4]};
+  a[3] = {big[i0 + 8 * LD + 4], small[i0 + 8 * LD + 4]};
+}
+// B fragment read K-major, B[k][n] = X[n][k]; i indexes (row g, column t4)
+__device__ __forceinline__ void bfrag_kmajor(Split (&b)[2],
+                                             const uint32_t* big,
+                                             const uint32_t* small, int i) {
+  b[0] = {big[i], small[i]};
+  b[1] = {big[i + 4], small[i + 4]};
+}
+// B fragment with the planes' rows as k, in the accumulator's order (k t4
+// is row 2 t4, k t4 + 4 row 2 t4 + 1); i indexes (row 2 t4, column g)
+__device__ __forceinline__ void bfrag_rows(Split (&b)[2], const uint32_t* big,
+                                           const uint32_t* small, int i,
+                                           int LD) {
+  b[0] = {big[i], small[i]};
+  b[1] = {big[i + LD], small[i + LD]};
+}
+// an accumulator tile (16 x 8) as the A operand of the next product, its
+// columns in the order bfrag_rows reads B's rows
+__device__ __forceinline__ void acc_as_a(Split (&a)[4], const float (&c)[4]) {
+  a[0] = split(c[0]);
+  a[1] = split(c[2]);
+  a[2] = split(c[1]);
+  a[3] = split(c[3]);
+}
+
+// sum (16 x 8 NO) += A (16 x 32: four accumulator tiles) B (32 x 8 NO rows
+// of the planes from index i0, as bfrag_rows reads them), the product
+// first in zeroed registers, then added in IEEE float32
+template <int NO>
+__device__ __forceinline__ void tile_product(float (&sum)[NO][4],
+                                             const float (&a_acc)[4][4],
+                                             const uint32_t* big,
+                                             const uint32_t* small, int i0,
+                                             int LD) {
+  float t[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    Split a[4];
+    acc_as_a(a, a_acc[kc]);
+    const int i = i0 + kc * 8 * LD;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      Split bb[2];
+      bfrag_rows(bb, big, small, i + n * 8, LD);
+      mma_3xtf32(t[n], a, bb);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[n][e] += t[n][e];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_dq_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ o,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              float* __restrict__ delta,
+                              float* __restrict__ dq, int H, int K, int S,
+                              int T_, int causal, int window, float scale,
+                              Layout lq, Layout lkv) {
+  constexpr int BK = kDqBK, LD = DqCfg<D>::LD, NT = BK / 8, NO = D / 8,
+                KQ = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* KV = reinterpret_cast<float*>(smem);  // stage s: K, then V
+  uint32_t* const Pl = reinterpret_cast<uint32_t*>(KV + 4 * BK * LD);
+  float* Qs = KV;                              // staged at the start
+  float* dOs = KV + kBQ * LD;
+  float* Os = KV + 2 * kBQ * LD;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / K);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const long long qoff = b * lq.b + h * lq.h;
+  const float* kb = k + b * lkv.b + kh * lkv.h;
+  const float* vb = v + b * lkv.b + kh * lkv.h;
+  const size_t row0 = (size_t)(b * H + h) * S;
+
+  const int q_last = min(S, q0 + kBQ) - 1;
+  const int hi = causal ? min(T_, q_last + 1) : T_;
+  int lo = window ? max(0, q0 - window + 1) : 0;
+  lo = (lo / BK) * BK;
+  const int ntiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+
+  load_rows<float, D>(Qs, q + qoff + q0 * lq.s, kBQ, S - q0, lq.s);
+  load_rows<float, D>(dOs, dout + qoff + q0 * lq.s, kBQ, S - q0, lq.s);
+  load_rows<float, D>(Os, o + qoff + q0 * lq.s, kBQ, S - q0, lq.s);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Delta of this warp's 16 rows: two lanes a row, half the columns each
+  const int r0 = q0 + warp * 16;
+  float dl[2];
+  {
+    const int rr = warp * 16 + (lane >> 1);
+    const float* x = dOs + rr * LD + (lane & 1) * (D / 2);
+    const float* y = Os + rr * LD + (lane & 1) * (D / 2);
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc = fmaf(x[i], y[i], acc);
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    if ((lane & 1) == 0 && r0 + (lane >> 1) < S)
+      delta[row0 + r0 + (lane >> 1)] = acc;
+    dl[0] = __shfl_sync(kFull, acc, 2 * g);        // row r0 + g
+    dl[1] = __shfl_sync(kFull, acc, 2 * g + 16);   // row r0 + g + 8
+  }
+  float ls[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qp = r0 + g + 8 * hh;
+    ls[hh] = qp < S ? lse[row0 + qp] : __int_as_float(0x7f800000);
+  }
+  Split qa[KQ][4], da[KQ][4];
+#pragma unroll
+  for (int kc = 0; kc < KQ; ++kc) {
+    frag_split(qa[kc], Qs + warp * 16 * LD, LD, kc, g, t4);
+    frag_split(da[kc], dOs + warp * 16 * LD, LD, kc, g, t4);
+  }
+  __syncthreads();                   // the staged rows are in registers
+
+  auto load_kv = [&](int it) {
+    const int k0 = lo + it * BK;
+    float* Ks = KV + (it & 1) * 2 * BK * LD;
+    load_rows<float, D>(Ks, kb + k0 * lkv.s, BK, T_ - k0, lkv.s);
+    load_rows<float, D>(Ks + BK * LD, vb + k0 * lkv.s, BK, T_ - k0, lkv.s);
+  };
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const uint32_t* Kb = Pl;
+  const uint32_t* Ksm = Pl + BK * LD;
+  const uint32_t* Vb = Pl + 2 * BK * LD;
+  const uint32_t* Vsm = Pl + 3 * BK * LD;
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();     // tile it landed; tile it-1's planes are done with
+    const float* Ks = KV + (it & 1) * 2 * BK * LD;
+    split_rows<D>(Pl, Pl + BK * LD, Ks, BK);
+    split_rows<D>(Pl + 2 * BK * LD, Pl + 3 * BK * LD, Ks + BK * LD, BK);
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+    __syncthreads();     // the planes are written
+    const int k0 = lo + it * BK;
+
+    // S = Q K^T and dP = dO V^T (16 x BK per warp)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KQ; ++kc)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int i = (j * 8 + g) * LD + kc * 8 + t4;
+        Split bb[2];
+        bfrag_kmajor(bb, Kb, Ksm, i);
+        mma_3xtf32(s[j], qa[kc], bb);
+        bfrag_kmajor(bb, Vb, Vsm, i);
+        mma_3xtf32(dp[j], da[kc], bb);
+      }
+    apply_mask(s, r0, k0, g, t4, T_, causal, window);
+    // dS = P (dP - Delta), P = exp(scale S - L); a masked score is -1e30
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const float p = expf(fmaf(s[j][e], scale, -ls[hh]));
+        s[j][e] = p * (dp[j][e] - dl[hh]);
+      }
+    // dQ += dS K, the tile's product added in IEEE float32
+    tile_product<NO>(acc, s, Kb, Ksm, 2 * t4 * LD + g, LD);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qp = r0 + g + 8 * hh;
+    if (qp >= S) continue;
+    float* row = dq + qoff + qp * lq.s + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(row + n * 8, acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dk,
+                               float* __restrict__ dv, int H, int K, int S,
+                               int T_, int causal, int window, float scale,
+                               Layout lq, Layout lkv) {
+  constexpr int LD = DkvCfg<D>::LD, PL = DkvCfg<D>::kPlane, NO = D / 8,
+                KD = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* const pl = reinterpret_cast<uint32_t*>(smem);
+  const uint32_t *Kb = pl, *Ksm = pl + PL, *Vb = pl + 2 * PL,
+                 *Vsm = pl + 3 * PL, *Qb = pl + 4 * PL, *Qsm = pl + 5 * PL,
+                 *Db = pl + 6 * PL, *Dsm = pl + 7 * PL;
+  float* rawQ = reinterpret_cast<float*>(pl + 8 * PL);
+  float* rawD = rawQ + PL;
+  float* Ls = rawD + PL;
+  float* Dl = Ls + kBwdQ;
+
+  const int k0 = blockIdx.x * kBwdKeys;   // causal: the first tiles see most
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / K;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wk = warp & 3;                 // keys kr .. kr + 15
+  const int wq = warp >> 2;                // queries 32 wq .. of each tile
+  const int kr = k0 + 16 * wk;
+  const long long koff = b * lkv.b + kh * lkv.h;
+
+  // K and V through the raw buffers into their planes
+  load_rows<float, D, kBwdThreads>(rawQ, k + koff + k0 * lkv.s, kBwdKeys,
+                                   T_ - k0, lkv.s);
+  load_rows<float, D, kBwdThreads>(rawD, v + koff + k0 * lkv.s, kBwdKeys,
+                                   T_ - k0, lkv.s);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_rows<D, kBwdThreads>(pl, pl + PL, rawQ, kBwdKeys);
+  split_rows<D, kBwdThreads>(pl + 2 * PL, pl + 3 * PL, rawD, kBwdKeys);
+  __syncthreads();
+
+  // the query tiles that see a key of this tile, for each of the G heads
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(S, k0 + kBwdKeys - 1 + window) : S;
+  const int nq = q_hi > q_lo ? (q_hi - q_lo + kBwdQ - 1) / kBwdQ : 0;
+  const int n_it = G * nq;
+  auto load_q = [&](int it) {
+    const int h = kh * G + it / nq;
+    const int q0 = q_lo + (it % nq) * kBwdQ;
+    const long long off = b * lq.b + h * lq.h + q0 * lq.s;
+    load_rows<float, D, kBwdThreads>(rawQ, q + off, kBwdQ, S - q0, lq.s);
+    load_rows<float, D, kBwdThreads>(rawD, dout + off, kBwdQ, S - q0, lq.s);
+  };
+  if (n_it > 0) load_q(0);
+  cp_async_commit();
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int h = kh * G + it / nq;
+    const int q0 = q_lo + (it % nq) * kBwdQ;
+    cp_async_wait<0>();
+    __syncthreads();     // tile it landed; tile it-1's planes are done with
+    split_rows<D, kBwdThreads>(pl + 4 * PL, pl + 5 * PL, rawQ, kBwdQ);
+    split_rows<D, kBwdThreads>(pl + 6 * PL, pl + 7 * PL, rawD, kBwdQ);
+    if (threadIdx.x < kBwdQ) {
+      const int qp = q0 + threadIdx.x;
+      const size_t r = (size_t)(b * H + h) * S + qp;
+      Ls[threadIdx.x] = qp < S ? lse[r] : __int_as_float(0x7f800000);
+      Dl[threadIdx.x] = qp < S ? delta[r] : 0.f;
+    }
+    __syncthreads();     // planes, L and Delta written; the raw buffers free
+    if (it + 1 < n_it) load_q(it + 1);
+    cp_async_commit();
+
+    const int qs = q0 + 32 * wq;           // this warp's first query
+    if (qs >= S || kr >= T_ || (causal && kr > qs + 31)
+        || (window && kr + 15 <= qs - window))
+      continue;                            // no valid pair for this warp
+    // S^T = K Q^T and dP^T = V dO^T (16 keys x 32 queries per warp)
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KD; ++kc) {
+      const int ia = (16 * wk + g) * LD + kc * 8 + t4;
+      Split ak[4], av[4];
+      frag_planes(ak, Kb, Ksm, ia, LD);
+      frag_planes(av, Vb, Vsm, ia, LD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ib = (32 * wq + j * 8 + g) * LD + kc * 8 + t4;
+        Split bb[2];
+        bfrag_kmajor(bb, Qb, Qsm, ib);
+        mma_3xtf32(s[j], ak, bb);
+        bfrag_kmajor(bb, Db, Dsm, ib);
+        mma_3xtf32(dp[j], av, bb);
+      }
+    }
+    // P^T = exp(scale S^T - L) and dS^T = P^T (dP^T - Delta): rows are
+    // keys kr + g (+ 8), columns queries; a masked pair gives 0
+    const bool need_mask = qs + 32 > S || kr + 16 > T_
+                           || (causal && kr + 15 > qs)
+                           || (window && kr <= qs + 31 - window);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 32 * wq + j * 8 + 2 * t4 + (e & 1);
+        float p = expf(fmaf(s[j][e], scale, -Ls[qc]));
+        if (need_mask) {
+          const int kp = kr + g + 8 * (e >> 1);
+          const int qp = q0 + qc;
+          const bool ok = qp < S && kp < T_ && (!causal || kp <= qp)
+                          && (!window || kp > qp - window);
+          if (!ok) p = 0.f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - Dl[qc]);
+      }
+    // dV += P^T dO, then dK += dS^T Q, over the warp's 32 queries: each
+    // tile's product in zeroed registers, added to the sums in IEEE
+    // float32 (the tensor cores' own additions do not round to nearest,
+    // and a key's sums run over every query of G heads)
+    tile_product<NO>(dva, s, Db, Dsm, (32 * wq + 2 * t4) * LD + g, LD);
+    tile_product<NO>(dka, dp, Qb, Qsm, (32 * wq + 2 * t4) * LD + g, LD);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                         // the planes are done with
+
+  // the second query half's sums through shared memory, added to the
+  // first half's in that order
+  float* red = reinterpret_cast<float*>(smem) + wk * 2 * NO * 4 * 32 + lane;
+  if (wq == 1) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[(n * 4 + e) * 32] = dka[n][e];
+        red[((NO + n) * 4 + e) * 32] = dva[n][e];
+      }
+  }
+  __syncthreads();
+  if (wq == 1) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kp = kr + g + 8 * hh;
+    if (kp >= T_) continue;
+    float* rk = dk + koff + kp * lkv.s + 2 * t4;
+    float* rv = dv + koff + kp * lkv.s + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int e0 = 2 * hh, e1 = 2 * hh + 1;
+      store2(rk + n * 8, (dka[n][e0] + red[(n * 4 + e0) * 32]) * scale,
+             (dka[n][e1] + red[(n * 4 + e1) * 32]) * scale);
+      store2(rv + n * 8, dva[n][e0] + red[((NO + n) * 4 + e0) * 32],
+             dva[n][e1] + red[((NO + n) * 4 + e1) * 32]);
+    }
+  }
+}
+
+// a kernel's dynamic shared memory raised past 48 KB, once per kernel and
+// card (the host's cost per call counts where the steps are small)
+template <auto Kern>
+cudaError_t allow_smem(size_t bytes) {
+  static unsigned long long done = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) done |= bit;
+  return e;
+}
+
+template <int D>
+cudaError_t train_forward(const float* q, const float* k, const float* v,
+                          float* out, float* lse, int B, int H, int K, int S,
+                          int T_, int causal, int window, float scale,
+                          Layout lq, Layout lkv, cudaStream_t s) {
+  auto kern = flash_attention_kernel<float, D>;
+  constexpr size_t smem = Cfg<float, D>::kSmem;
+  const cudaError_t attr = allow_smem<flash_attention_kernel<float, D>>(smem);
+  if (attr != cudaSuccess) return attr;
+  kern<<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem, s>>>(
+      q, k, v, out, lse, H, K, S, T_, causal, window, scale, lq, lkv);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t train_backward(const float* q, const float* k, const float* v,
+                           const float* o, const float* dout,
+                           const float* lse, float* delta, float* dq,
+                           float* dk, float* dv, int B, int H, int K, int S,
+                           int T_, int causal, int window, float scale,
+                           Layout lq, Layout lkv, cudaStream_t s) {
+  auto kq = flash_attention_bwd_dq_kernel<D>;
+  auto kkv = flash_attention_bwd_dkv_kernel<D>;
+  cudaError_t e = allow_smem<flash_attention_bwd_dq_kernel<D>>(
+      DqCfg<D>::kSmem);
+  if (e == cudaSuccess)
+    e = allow_smem<flash_attention_bwd_dkv_kernel<D>>(DkvCfg<D>::kSmem);
+  if (e != cudaSuccess) return e;
+  kq<<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, DqCfg<D>::kSmem, s>>>(
+      q, k, v, o, dout, lse, delta, dq, H, K, S, T_, causal, window, scale,
+      lq, lkv);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  kkv<<<dim3((T_ + kBwdKeys - 1) / kBwdKeys, K, B), kBwdThreads,
+        DkvCfg<D>::kSmem, s>>>(q, k, v, dout, lse, delta, dk, dv, H, K, S,
+                               T_, causal, window, scale, lq, lkv);
+  return cudaGetLastError();
+}
+
+#ifndef FLASH_ATTENTION_TRAIN_ONLY
 // cuTensorMapEncodeTiled, fetched once through the runtime's entry-point
 // lookup (no link against libcuda).
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -964,10 +1521,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+    const Layout lq{(long long)H * S * D, (long long)S * D, D};
+    const Layout lkv{(long long)K * T_ * D, (long long)T_ * D, D};
     kern<<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), H, K, S, T_, causal,
-        window, sc);
+        static_cast<const T*>(v), static_cast<T*>(out), nullptr, H, K, S,
+        T_, causal, window, sc, lq, lkv);
     return cudaGetLastError();
   }
 }
@@ -994,9 +1553,64 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+#endif  // FLASH_ATTENTION_TRAIN_ONLY
+
+// the training route's widths (float32)
+template <typename F>
+cudaError_t train_dispatch(int D, F&& f) {
+  switch (D) {
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+Layout layout_at(const long long* a) { return {a[0], a[1], a[2]}; }
+
 }  // namespace
 
 extern "C" {
+
+// The training route. `a` holds B, H, K, S, T, D, causal, window, then the
+// element strides (batch, head, position) of q, out, dO and dQ (one
+// layout) and of k, v, dK and dV (another); the last axis is contiguous
+// and rows are 16-byte aligned (the wrapper checks). lse and delta are
+// (B, H, S) float32. Returns a cudaError_t (0 on success).
+int flash_attention_train_forward(const float* q, const float* k,
+                                  const float* v, float* out, float* lse,
+                                  const long long* a, float scale,
+                                  int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return static_cast<int>(train_dispatch((int)a[5], [&](auto d) {
+    return train_forward<decltype(d)::value>(
+        q, k, v, out, lse, (int)a[0], (int)a[1], (int)a[2], (int)a[3],
+        (int)a[4], (int)a[6], (int)a[7], scale, layout_at(a + 8),
+        layout_at(a + 11), static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// Delta (B, H, S) is the backward's scratch: written by its first kernel,
+// read by its second.
+int flash_attention_train_backward(const float* q, const float* k,
+                                   const float* v, const float* out,
+                                   const float* dout, const float* lse,
+                                   float* delta, float* dq, float* dk,
+                                   float* dv, const long long* a, float scale,
+                                   int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return static_cast<int>(train_dispatch((int)a[5], [&](auto d) {
+    return train_backward<decltype(d)::value>(
+        q, k, v, out, dout, lse, delta, dq, dk, dv, (int)a[0], (int)a[1],
+        (int)a[2], (int)a[3], (int)a[4], (int)a[6], (int)a[7], scale,
+        layout_at(a + 8), layout_at(a + 11),
+        static_cast<cudaStream_t>(stream));
+  }));
+}
+
+#ifndef FLASH_ATTENTION_TRAIN_ONLY
 
 // Launch on `stream` of card `device`; returns a cudaError_t (0 on
 // success). The wrapper has checked D in {32, 64, 128, 256}, H % K == 0,
@@ -1016,5 +1630,6 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                 window, scale, s);
   return static_cast<int>(err);
 }
+#endif  // FLASH_ATTENTION_TRAIN_ONLY
 
 }  // extern "C"

@@ -29,13 +29,18 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.kernels.flash_attention import train as fa_train
 from repro_torch.kernels.gemm_3xtf32 import linear
-from repro_torch.kernels.runtime import DeviceLike, resolve_device
+from repro_torch.kernels.runtime import (DeviceLike, launch_counter,
+                                         resolve_device)
 from repro_torch.models.layers import (Init, apply_rope, as_dtype, f32,
                                        rmsnorm, rope_tables, rotate)
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
+# training attention calls by the route they took (``attention``)
+FUSED_CALLS = launch_counter("attention.fused_calls")
+PLAIN_CALLS = launch_counter("attention.plain_calls")
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +165,8 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
               rope_theta: float = 10000.0,
               xkv: Optional[torch.Tensor] = None,
               kv_positions: Optional[torch.Tensor] = None,
-              split: bool = False, kv_split: bool = False) -> torch.Tensor:
+              split: bool = False, kv_split: bool = False,
+              by_index: bool = False) -> torch.Tensor:
     """Attention over the whole sequence x (B,S,d) at ``positions`` (S,)
     — causal and/or sliding-window — on plain tensor ops, as the JAX
     training forward (autograd differentiates it). Self-attention, or
@@ -171,7 +177,15 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     ``wq`` / ``bq`` / ``wo`` are this rank's; so are the KV heads where
     ``kv_split``, else they are replicated and narrowed to those the
     local query heads read. The inputs go through ``copy_to_model`` and
-    the output projection's partial through ``reduce_from_model``."""
+    the output projection's partial through ``reduce_from_model``.
+
+    ``by_index``: the caller states that ``positions`` is the sequence's
+    own index ``0..S-1``, so the masks are the kernels' masks by index. The
+    softmax runs in ``grouped_attend``, or, where ``fa_train.route`` says
+    "fused" (CUDA, float32, a built head width, self-attention
+    ``by_index``), in ``fa_train.attention_train``'s kernels;
+    ``FUSED_CALLS`` / ``PLAIN_CALLS`` count the calls of each."""
+    cross = xkv is not None
     kv_positions = positions if kv_positions is None else kv_positions
     if split:
         if xkv is not None:
@@ -187,9 +201,16 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
         if kv_positions is not positions:
             cos, sin = rope_tables(kv_positions, q.shape[-1], rope_theta)
         k = rotate(k, cos, sin)
-    mask = make_mask(positions, kv_positions, causal, window) \
-        if (causal or window) else None
-    return _out_proj(p, grouped_attend(q, k, v, mask), split)
+    if fa_train.route(q.device.type, q.dtype, q.shape[-1], cross,
+                      by_index and kv_positions is positions) == "fused":
+        FUSED_CALLS.count += 1
+        o = fa_train.attention_train(q, k, v, causal=causal, window=window)
+    else:
+        PLAIN_CALLS.count += 1
+        mask = make_mask(positions, kv_positions, causal, window) \
+            if (causal or window) else None
+        o = grouped_attend(q, k, v, mask)
+    return _out_proj(p, o, split)
 
 
 # ---------------------------------------------------------------------------

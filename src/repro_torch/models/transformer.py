@@ -312,21 +312,25 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def apply_attn_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
                      cfg: ArchConfig, *, causal: bool = True,
-                     path: Tuple[str, ...] = ("blocks",)) -> torch.Tensor:
+                     path: Tuple[str, ...] = ("blocks",),
+                     by_index: bool = False) -> torch.Tensor:
+    """A pre-norm attention block. ``by_index``: ``positions`` is the
+    sequence's own index 0..S-1 (``attention``)."""
     h = apply_norm(bp["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(
         bp["attn"], h, positions, causal=causal, window=cfg.sliding_window,
-        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta,
+        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta, by_index=by_index,
         **_heads(path + ("attn",)))
     return _ffn(bp, x, cfg, path=path)
 
 
 def apply_moe_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                    cfg: ArchConfig, *, by_index: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     h = apply_norm(bp["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(
         bp["attn"], h, positions, causal=True, window=cfg.sliding_window,
-        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta,
+        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta, by_index=by_index,
         **_heads(("blocks", "attn")))
     aux: List[torch.Tensor] = []
     x = _ffn(bp, x, cfg, aux)
@@ -342,12 +346,12 @@ def apply_ssm_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _apply_super(sp: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig) -> torch.Tensor:
+                 cfg: ArchConfig, *, by_index: bool = False) -> torch.Tensor:
     """A hybrid super-block: P-1 SSM blocks, then an attention block."""
     for j in range(cfg.hybrid_attn_period - 1):
         x = apply_ssm_block(layer(sp["ssm"], j), x, cfg, ("super", "ssm"))
     return apply_attn_block(sp["attn"], x, positions, cfg,
-                            path=("super", "attn"))
+                            path=("super", "attn"), by_index=by_index)
 
 
 def _frames_in(cfg: ArchConfig, frames: Optional[torch.Tensor],
@@ -365,8 +369,8 @@ def _frames_in(cfg: ArchConfig, frames: Optional[torch.Tensor],
             + as_dtype(sinusoidal_pos(fpos, cfg.d_model), adt)), fpos
 
 
-def _direct(fn, *args):
-    return fn(*args)
+def _direct(fn, *args, **kw):
+    return fn(*args, **kw)
 
 
 def _encode(params, cfg: ArchConfig, frames: Optional[torch.Tensor],
@@ -379,14 +383,15 @@ def _encode(params, cfg: ArchConfig, frames: Optional[torch.Tensor],
     enc, fpos = _frames_in(cfg, frames, device)
     for i in range(cfg.n_encoder_layers):
         enc = run(_encoder_block, layer(params["encoder"], i), enc, fpos,
-                  cfg)
+                  cfg, by_index=True)
     return apply_norm(params["enc_final_norm"], enc, cfg.norm_eps), fpos
 
 
 def _encoder_block(bp: Params, x: torch.Tensor, fpos: torch.Tensor,
-                   cfg: ArchConfig) -> torch.Tensor:
+                   cfg: ArchConfig, *, by_index: bool = False
+                   ) -> torch.Tensor:
     return apply_attn_block(bp, x, fpos, cfg, causal=False,
-                            path=("encoder",))
+                            path=("encoder",), by_index=by_index)
 
 
 def _cross_mlp(bp: Params, h: torch.Tensor, cfg: ArchConfig, attend
@@ -401,12 +406,13 @@ def _cross_mlp(bp: Params, h: torch.Tensor, cfg: ArchConfig, attend
 
 def _decoder_block(bp: Params, h: torch.Tensor, positions: torch.Tensor,
                    enc: torch.Tensor, fpos: torch.Tensor,
-                   cfg: ArchConfig) -> torch.Tensor:
+                   cfg: ArchConfig, *, by_index: bool = False
+                   ) -> torch.Tensor:
     """A whole-sequence decoder block: causal self-attention without
     RoPE, cross-attention over ``enc``, MLP."""
     hh = apply_norm(bp["ln1"], h, cfg.norm_eps)
     h = h + attn_mod.attention(bp["self_attn"], hh, positions, causal=True,
-                               use_rope=False,
+                               use_rope=False, by_index=by_index,
                                **_heads(("blocks", "self_attn")))
     return _cross_mlp(bp, h, cfg, lambda p, x: attn_mod.attention(
         p, x, positions, causal=False, use_rope=False, xkv=enc,
@@ -441,30 +447,33 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
                              device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(fn, *args):
+    def run(fn, *args, **kw):
         if not remat:
-            return fn(*args)
+            return fn(*args, **kw)
         # in a sharded step the recompute runs every collective of the
         # block again, on every rank alike: none stops early
         with (torch.utils.checkpoint.set_checkpoint_early_stop(False)
               if tp.current() else contextlib.nullcontext()):
             return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                     use_reentrant=False)
+                                                     use_reentrant=False,
+                                                     **kw)
 
     if cfg.arch_type == "audio":
         enc, fpos = _encode(params, cfg, frames, x.device, run)
         x = x + as_dtype(sinusoidal_pos(positions, cfg.d_model), x.dtype)
         for i in range(cfg.n_layers):
             x = run(_decoder_block, layer(params["blocks"], i), x,
-                    positions, enc, fpos, cfg)
+                    positions, enc, fpos, cfg, by_index=True)
     elif cfg.arch_type in ("dense", "vlm", "moe"):
         for i in range(cfg.n_layers):
             bp = layer(params["blocks"], i)
             if cfg.arch_type == "moe":
-                x, a = run(apply_moe_block, bp, x, positions, cfg)
+                x, a = run(apply_moe_block, bp, x, positions, cfg,
+                           by_index=True)
                 aux = aux + a
             else:
-                x = run(apply_attn_block, bp, x, positions, cfg)
+                x = run(apply_attn_block, bp, x, positions, cfg,
+                        by_index=True)
     elif cfg.arch_type == "ssm":
         for i in range(cfg.n_layers):
             x = run(apply_ssm_block, layer(params["blocks"], i), x, cfg)
@@ -472,7 +481,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         _, ns, nt = _hybrid_split(cfg)
         for s in range(ns):
             x = run(_apply_super, layer(params["super"], s), x, positions,
-                    cfg)
+                    cfg, by_index=True)
         for i in range(nt):
             x = run(apply_ssm_block, layer(params["tail"], i), x, cfg,
                     ("tail",))
